@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-The sources in csrc/ are compiled by nvcc for sm_90a into one shared library
-with a plain C interface, loaded with ctypes.  The build happens at first
-use, into _build/ beside this file, under a name that carries a hash of the
+The sources in csrc/ are compiled by nvcc for sm_90a, one nvcc process per
+.cu file, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes.  The build happens at first use,
+into _build/ beside this file, under a name that carries a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
 at once.  Nothing here runs at import time: the CPU routes never need nvcc.
 """
@@ -20,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -30,6 +31,10 @@ _SIGNATURES = {
     "snappy_concat_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (comp, comp_lens, out_lens, out, ok, B, stream) -> cudaError_t
     "snappy_decode_blocks": (_P, _P, _P, _P, _P, _I, _P),
+    # (comp, comp_lens, out_lens, ctx_lens, ctx0, out, ok, N, stream) -> cudaError_t
+    "snappy_decode_stream": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # (tapes, nrecs, comp, out, ok, B, cap, stream) -> cudaError_t
+    "snappy_run_tape": (_P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -56,18 +61,32 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu unless a library for the current sources exists.
-    The compiler's output (ptxas register and shared-memory report) is kept
+    The compilers' output (ptxas register and shared-memory report) is kept
     beside the library as .log."""
     so = library_path()
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
+    jobs = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for p, o in zip(cus, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in jobs]
+    outs = [p.communicate()[0] for p in procs]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources() if p.suffix == ".cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    failed = [(cmd, out) for cmd, out, p in zip(jobs, outs, procs) if p.returncode != 0]
+    if not failed:
+        r = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs, outs = [*jobs, link], [*outs, r.stdout]
+        if r.returncode != 0:
+            failed = [(link, r.stdout)]
+    so.with_suffix(".log").write_text("".join(" ".join(c) + "\n" + o for c, o in zip(jobs, outs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, so)
     return so
 

@@ -1,17 +1,18 @@
 """High-level codec API on the port: compress/decompress raw Snappy streams
 with host framing, on an explicit torch device.
 
-The counterpart of snappytpu.api, producing byte-identical streams.  Two
-differences from the JAX package:
+The counterpart of snappytpu.api, producing byte-identical streams and
+taking the same decode routes:
 
-  * Host-resident block-splittable streams decode through the block decoder
-    (K2).  The JAX package sends them to its tape kernel when the native
-    runtime is present, a route chosen for the TPU's scalar latency; whether
-    it pays on Hopper is for a measured later change.
-  * A valid stream that is not block-splittable needs the windowed decoder
-    (K4), which is not ported yet: `decompress` raises NotImplementedError
-    for it rather than decoding on the host.  Streams with single ops wider
-    than a window go to the native host decoder, as in the JAX package.
+  * a block-splittable stream decodes as independent blocks: through the
+    tape decoder K5 (host-built movement tapes, kernels/decode_tape.py) when
+    the native runtime is present, else through the block decoder K2;
+  * a valid stream whose ops straddle the 64 KiB grid decodes through the
+    windowed decoder K4 (kernels/decode_vm2.py), in batches of
+    _WINDOWED_BATCH chunks with the 64 KiB tail carried between calls;
+  * a stream no window can hold (a single op wider than 64 KiB, a copy
+    reaching past the window, or a corrupt one) goes to the sequential
+    host decoder, native or model, which decodes or rejects it.
 
 There is no power-of-two batch bucketing (it bounded jit recompiles only);
 a device call takes at most 128 blocks.
@@ -28,10 +29,15 @@ from snappytpu.format.varint import encode_varint
 from snappytpu.model.decode import CorruptError, decode_ops
 from snappytpu.stream import framing
 
+from .kernels.decode_tape import decode_blocks_tape
 from .kernels.decode_vm import decode_blocks_vm as decode_blocks
+from .kernels.decode_vm2 import decode_stream_vm
 from .kernels.encode_v2 import encode_blocks_v2
 
 _MAX_DEVICE_BATCH = 128  # blocks per device call (8 MiB input per call)
+_WINDOWED_BATCH = 64     # chunks per decode_stream_vm call (~4.6 MB comp)
+
+host_fallbacks = 0  # unsplittable streams the windowed decoder refused, decoded on the host
 
 
 def encode_blocks(blocks, lens, profile="dense"):
@@ -76,25 +82,54 @@ def compress(data: bytes | np.ndarray, profile: str = "dense", *, device) -> byt
     return b"".join([encode_varint(arr.size), *encode_array_pieces(arr, profile, device=device)])
 
 
-def _unsplittable(arr: np.ndarray, ops: np.ndarray, out_len: int) -> bytes:
+def _decompress_windowed(split, *, device) -> bytes:
+    """Decode a valid stream that is not block-splittable: its chunks, cut at
+    op boundaries, run through the windowed decoder K4 in bounded batches,
+    each call seeded with the 64 KiB tail of the output so far (ctx0).
+    CorruptError if a chunk is malformed."""
+    chunks, out_lens, ctx_lens = split
+    pieces = []
+    tail = b""  # last <= 64 KiB of decoded output so far
+    for k0 in range(0, len(chunks), _WINDOWED_BATCH):
+        k1 = min(k0 + _WINDOWED_BATCH, len(chunks))
+        padded, comp_lens = framing.pad_chunks(chunks[k0:k1])
+        ctx0 = np.zeros(C.MAX_BLOCK_SIZE, np.uint8)
+        if tail:
+            ctx0[C.MAX_BLOCK_SIZE - len(tail):] = np.frombuffer(tail, np.uint8)
+        out, ok = decode_stream_vm(
+            torch.from_numpy(padded).to(device),
+            torch.from_numpy(comp_lens).to(device),
+            torch.tensor(out_lens[k0:k1], dtype=torch.int32, device=device),
+            torch.from_numpy(np.asarray(ctx_lens[k0:k1], np.int32)).to(device),
+            torch.from_numpy(ctx0).to(device),
+        )
+        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        if not ok.all():
+            raise CorruptError(f"malformed chunk(s) {(k0 + np.nonzero(~ok)[0]).tolist()} (windowed)")
+        batch = b"".join(out[i, : out_lens[k0 + i]].tobytes() for i in range(k1 - k0))
+        pieces.append(batch)
+        tail = (tail + batch)[-C.MAX_BLOCK_SIZE:]
+    return b"".join(pieces)
+
+
+def _unsplittable(arr: np.ndarray, ops: np.ndarray, out_len: int, device) -> bytes:
     """A stream whose ops straddle 64 KiB output blocks."""
+    global host_fallbacks
     try:
-        framing.split_ops_windowed(ops, out_len)
+        return _decompress_windowed(framing.split_ops_windowed(ops, out_len), device=device)
     except CorruptError:
         # giant-op stream, or one no window can prove valid: the sequential
         # host decoder decodes the valid ones and raises on the corrupt ones
+        host_fallbacks += 1
         if cpu.available:
             return cpu.decompress(arr)
         return decode_ops(ops, out_len).tobytes()
-    raise NotImplementedError(
-        "stream is valid but not block-splittable; it needs the windowed "
-        "decoder (TPU kernel K4, decode_vm2.decode_stream_vm), which is not ported yet"
-    )
 
 
 def decompress(data: bytes | np.ndarray, *, device) -> bytes:
-    """Decode a raw Snappy stream, its blocks on `device` through the
-    block decoder; CorruptError if a block is malformed."""
+    """Decode a raw Snappy stream on `device` by the routes in the module
+    docstring; CorruptError (or the native decoder's NativeError) if the
+    stream is malformed."""
     arr = _as_u8(data)
     out_len, ops_start = framing.read_preamble(arr)
     if out_len == 0:
@@ -107,27 +142,26 @@ def decompress(data: bytes | np.ndarray, *, device) -> bytes:
             offs, out_lens = cpu.scan_ops(ops, out_len)
             padded, comp_lens = cpu.split_rows(ops, offs, C.MAX_COMPRESSED_BLOCK_SIZE)
         except cpu.NativeError:
-            return _unsplittable(arr, ops, out_len)
+            return _unsplittable(arr, ops, out_len, device)
     else:
         try:
             chunks, out_lens = framing.split_ops_stream(ops, out_len)
         except CorruptError:
-            return _unsplittable(arr, ops, out_len)
+            return _unsplittable(arr, ops, out_len, device)
         padded, comp_lens = framing.pad_chunks(chunks)
     out_lens = np.asarray(out_lens, np.int32)
     pieces = []
     for start in range(0, padded.shape[0], _MAX_DEVICE_BATCH):
-        end = start + _MAX_DEVICE_BATCH
-        out, ok = decode_blocks(
-            torch.from_numpy(padded[start:end]).to(device),
-            torch.from_numpy(comp_lens[start:end]).to(device),
-            torch.from_numpy(out_lens[start:end]).to(device),
-        )
+        rows, cl, ol = (a[start : start + _MAX_DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
+        if cpu.available:  # host-built tapes, the device only moves bytes
+            out, ok = decode_blocks_tape(rows, cl, ol, device=device)
+        else:
+            out, ok = decode_blocks(*(torch.from_numpy(a).to(device) for a in (rows, cl, ol)))
         out, ok = out.cpu().numpy(), ok.cpu().numpy()
         if not ok.all():
             raise CorruptError(f"malformed block(s) {(start + np.nonzero(~ok)[0]).tolist()}")
         if cpu.available:
-            pieces.append(cpu.compact(out, out_lens[start:end]))
+            pieces.append(cpu.compact(out, ol))
         else:
-            pieces.extend(out[i, : out_lens[start + i]].tobytes() for i in range(out.shape[0]))
+            pieces.extend(out[i, : ol[i]].tobytes() for i in range(out.shape[0]))
     return b"".join(pieces)

@@ -88,7 +88,7 @@ decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict
 
   if (threadIdx.x < 32) {
     WarpMover mv{comp_s, out_s, static_cast<int>(threadIdx.x)};
-    const bool good = snappy_block::decode_block(comp_s, comp_lens[b], out_lens[b], mv);
+    const bool good = snappy_block::decode_block(comp_s, comp_lens[b], out_lens[b], 0, mv);
     if (threadIdx.x == 0) ok_s = good;
   }
   __syncthreads();

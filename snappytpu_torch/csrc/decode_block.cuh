@@ -10,13 +10,16 @@
 //   * ip + hdr > comp_len                        -> bad
 //   * opc + len > out_len                        -> bad
 //   * a literal's bytes past comp_len            -> bad
-//   * a copy with dist < 1 or dist > opc         -> bad
+//   * a copy with dist < 1 or dist > opc + ctx_len -> bad
 //   * COPY4 with a nonzero 4th offset byte       -> bad
 //   * a 4-byte-length literal with b4 & 0xC0     -> bad
 //   * the loop runs while opc < out_len and ip < comp_len
 //   * ok = no bad op, ip == comp_len and opc == out_len
-// Lengths outside the row (comp_len not in [0, 73728], out_len not in
-// [0, 65536]) report not ok.  All bounds arithmetic is 64-bit (a 4-byte
+// ctx_len is how many decoded bytes lie before the block's output: 0 for an
+// independent block (K2), up to 65536 for a chunk of the windowed decoder
+// (K4, the rule of decode_vm2.py `_block_loop.parse_at`).  Lengths outside
+// the row (comp_len not in [0, 73728], out_len not in [0, 65536]) report
+// not ok.  All bounds arithmetic is 64-bit (a 4-byte
 // literal length reaches 2^30), and no byte past the 73728-byte row is read.
 
 #pragma once
@@ -47,7 +50,7 @@ SNAPPY_HD uint32_t byte_at(const uint8_t* row, int64_t i) {
 
 // Decode the op at comp byte ip with the output cursor at opc.
 SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_len,
-                      int64_t out_len) {
+                      int64_t out_len, int64_t ctx_len) {
   const uint32_t tag = byte_at(row, ip);
   const uint32_t b1 = byte_at(row, ip + 1);
   const uint32_t b2 = byte_at(row, ip + 2);
@@ -83,7 +86,7 @@ SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_
       op.len = code + 1;
       op.dist = b1 | (b2 << 8) | (b3 << 16);
     }
-    bad = op.dist < 1 || op.dist > opc || (kind == 3 && b4 != 0);
+    bad = op.dist < 1 || op.dist > opc + ctx_len || (kind == 3 && b4 != 0);
   }
   op.bad = bad || ip + op.hdr > comp_len || opc + op.len > out_len;
   return op;
@@ -92,14 +95,15 @@ SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_
 // Run one block's ops in order.  The mover places the bytes:
 //   mv.literal(opc, src, len): out[opc + j] = row[src + j]
 //   mv.copy(opc, dist, len):   out[opc + j] = out[opc + j - dist], byte-forward
-// Returns the ok flag.
+// (a copy may reach ctx_len bytes before out[0]).  Returns the ok flag.
 template <class Mover>
-SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_len, Mover& mv) {
+SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_len, int64_t ctx_len,
+                            Mover& mv) {
   if (comp_len < 0 || comp_len > kPadOut || out_len < 0 || out_len > kBlockSize) return false;
   int64_t ip = 0;
   int64_t opc = 0;
   while (opc < out_len && ip < comp_len) {
-    const Op op = parse_op(row, ip, opc, comp_len, out_len);
+    const Op op = parse_op(row, ip, opc, comp_len, out_len, ctx_len);
     if (op.bad) return false;
     if (op.dist == 0) {
       mv.literal(opc, ip + op.hdr, op.len);

@@ -62,25 +62,32 @@ def test_corrupt_stream_raises():
         api.decompress(stream, device="cpu")
 
 
-def test_unaligned_valid_stream_needs_the_windowed_decoder():
+def test_unaligned_valid_stream_needs_the_windowed_decoder(monkeypatch):
     """A short literal phase-shifts an encoded tail so that its ops straddle
-    the 64 KiB output grid (as in tests/test_fuzz_decode.py)."""
+    the 64 KiB output grid (as in tests/test_fuzz_decode.py): the stream
+    decodes to its data through the windowed decoder K4 (plain version)."""
     data = corpus.mixed(100_000, seed=4)
     shift = 7
     tail = np.frombuffer(api.compress(data[shift:], "fast", device="cpu"), np.uint8)
     _, start = framing.read_preamble(tail)
     stream = encode_varint(len(data)) + bytes([(shift - 1) << 2]) + data[:shift] + tail[start:].tobytes()
-    with pytest.raises(NotImplementedError, match="K4"):
-        api.decompress(stream, device="cpu")
+    calls = []
+    real = api.decode_stream_vm
+    monkeypatch.setattr(api, "decode_stream_vm", lambda *a: calls.append(a[0].shape[0]) or real(*a))
+    monkeypatch.setattr(api, "host_fallbacks", 0)
+    assert api.decompress(stream, device="cpu") == data == jax_api.decompress(stream)
+    assert calls == [2] and api.host_fallbacks == 0
 
 
-def test_giant_literal_goes_to_the_host_decoder():
+def test_giant_literal_goes_to_the_host_decoder(monkeypatch):
     """A single op wider than a window: the JAX package's own route (the
     native sequential decoder, or the model decoder without it)."""
     payload = corpus.random_bytes(70_000, seed=2)
     n = len(payload) - 1
     stream = encode_varint(len(payload)) + bytes([62 << 2]) + n.to_bytes(3, "little") + payload
+    monkeypatch.setattr(api, "host_fallbacks", 0)
     assert api.decompress(stream, device="cpu") == payload
+    assert api.host_fallbacks == 1
 
 
 def test_capacity_poison_raises(monkeypatch):
@@ -93,3 +100,21 @@ def test_capacity_poison_raises(monkeypatch):
     monkeypatch.setattr(api, "encode_blocks", poisoned)
     with pytest.raises(RuntimeError, match="capacity overflow"):
         api.compress(DATA["text_5"], device="cpu")
+
+
+def test_routes_without_the_native_runtime(monkeypatch):
+    """Without snappytpu.cpu the block route is K2 and the host fallback the
+    model decoder, as in the JAX package; the windowed route is unchanged."""
+    from snappytpu import cpu
+
+    monkeypatch.setattr(cpu, "available", False)
+    stream = _compressed("mixed100k", "fast")
+    assert api.decompress(stream, device="cpu") == DATA["mixed100k"]
+    data = corpus.mixed(100_000, seed=4)
+    tail = np.frombuffer(api.compress(data[3:], "fast", device="cpu"), np.uint8)
+    _, start = framing.read_preamble(tail)
+    unaligned = encode_varint(len(data)) + bytes([2 << 2]) + data[:3] + tail[start:].tobytes()
+    assert api.decompress(unaligned, device="cpu") == data
+    payload = corpus.random_bytes(70_000, seed=2)
+    giant = encode_varint(len(payload)) + bytes([62 << 2]) + (len(payload) - 1).to_bytes(3, "little") + payload
+    assert api.decompress(giant, device="cpu") == payload

@@ -179,3 +179,36 @@ def test_lengths_outside_the_row_are_not_ok():
         rows, torch.tensor([PAD_OUT + 1, 0, -1], dtype=torch.int32), torch.tensor([0, BS + 1, 0], dtype=torch.int32)
     )
     assert not ok.any()
+
+
+@functools.cache
+def _vm2_family(name):
+    """The rows of tests/test_decode_vm.py's A/B matrix: the JAX encoder's
+    stream of corpus.mixed(100_000, seed=7), as is, with one flipped byte,
+    or with the second block's comp_len one short (malformed)."""
+    blocks, lens = framing.pack_blocks(np.frombuffer(corpus.mixed(100_000, seed=7), np.uint8))
+    comp, totals = map(np.array, jax_encode(blocks, lens))
+    totals = totals.astype(np.int32)
+    if name == "flipped":
+        comp[0, 3] ^= 0xFF
+    if name == "short":
+        totals[1] -= 1
+    return comp, totals, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("name", ["valid", "flipped", "short"])
+def test_vm2_entry_equals_vm4_and_jax_vm2(name):
+    """K3: decode_blocks_vm2 equals decode_blocks_vm4 and the JAX package's
+    decode_blocks_vm2 (Pallas in interpret mode)."""
+    from snappytpu.kernels.decode_vm2 import decode_blocks_vm2 as jax_vm2
+    from snappytpu_torch.kernels import decode_vm2
+
+    rows, cl, ol = _vm2_family(name)
+    args = (torch.from_numpy(rows), torch.from_numpy(cl), torch.from_numpy(ol))
+    out, ok = decode_vm2.decode_blocks_vm2(*args)
+    out4, ok4 = decode_vm4.decode_blocks_vm4(*args)
+    assert torch.equal(out, out4) and torch.equal(ok, ok4)
+    jout, jok = map(np.asarray, jax_vm2(rows, cl, ol))
+    np.testing.assert_array_equal(ok.numpy(), jok)
+    np.testing.assert_array_equal(out.numpy()[jok], jout[jok])
+    assert jok.tolist() == {"valid": [True, True], "flipped": jok.tolist(), "short": [True, False]}[name]

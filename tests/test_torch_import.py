@@ -9,15 +9,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import sys
+import numpy as np
 import snappytpu_torch
-from snappytpu_torch import api
-from snappytpu_torch.kernels import concat, decode_vm, decode_vm4, encode_v2
+from snappytpu_torch import api, cli
+from snappytpu_torch.kernels import concat, decode_tape, decode_vm, decode_vm2, decode_vm4, encode_v2
+from snappytpu_torch.stream import filecodec
 from snappytpu.bench import corpus
+from snappytpu.format.varint import encode_varint
 
 data = corpus.mixed(70_000, seed=3)
 for profile in ("fast", "dense"):
     stream = api.compress(data, profile, device="cpu")
     assert api.decompress(stream, device="cpu") == data
+# an unaligned stream: its ops straddle the 64 KiB grid (the windowed route)
+tail = np.frombuffer(api.compress(data[5:], "fast", device="cpu"), np.uint8)
+stream = encode_varint(len(data)) + bytes([4 << 2]) + data[:5] + tail[3:].tobytes()
+assert api.decompress(stream, device="cpu") == data
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]
 assert not bad, bad
 assert not any(m.startswith(("snappytpu.kernels", "snappytpu.api", "snappytpu.mesh", "snappytpu.profiling"))
