@@ -28,6 +28,12 @@ set to 0 just before it and read just after:
   11    the windowed path: an unaligned 8 MB stream through api.decompress
         (two or more K4 calls of 64 chunks, and no chunk refused to the
         host decoder)
+  12    the decode profiling path (snappytpu_torch.tools) at the JAX tools'
+        sizes: T2 (decode anatomy), T3 (tape probe) and T1 (scalar probes)
+        against their plain versions, then dec_profile's four decoders,
+        T2's variants and T3's modes on four 128-block sets of text and
+        mixed, and T1's 16 probes at N = 200,000, timed
+  13    report
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line with each kernel's launches on its path, error against its
@@ -216,6 +222,117 @@ def run_tape_k_path(stream: bytes, raw: bytes, dev) -> None:
         pieces.append(cpu.compact(out.cpu().numpy(), o))
     if b"".join(pieces) != raw:
         raise AssertionError("K6 did not decode the stream to the input")
+
+
+def profiling_path(dev) -> tuple[dict, dict]:
+    """Phase 12: the decode profiling path at the JAX tools' sizes (128-block
+    sets, four per corpus, dense profile, text and mixed).  First each of
+    T1-T3 is held against its plain version, exactly; then, with the launch
+    counts at 0, the path runs: dec_profile's four decoders, T2's variants
+    and T3's modes on all sets, T1's 16 probes at N = 200,000.  Returns
+    (kernels entries, launch counts of the path)."""
+    from snappytpu_torch.kernels import decode_tape, decode_vm4
+    from snappytpu_torch.tools import _staged, dec_anatomy, dec_profile, probe_scalar, tape_probe
+
+    corpora = ("text", "mixed")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cache:
+        staged = {w: _staged.stage_sets(w, BATCH, 4, dev, cache_dir=cache) for w in corpora}
+        taped = {w: _staged.stage_sets(w, BATCH, 4, dev, tape=True, cache_dir=cache) for w in corpora}
+    torch.cuda.synchronize()
+    log(f"[12 profiling] staged 4 sets of {BATCH} dense blocks per corpus, as rows and as tapes, "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    def max_err(got, want) -> int:
+        torch.cuda.synchronize()
+        return max(int((g.cpu().to(torch.int64) - r.to(torch.int64)).abs().max()) for g, r in zip(got, want))
+
+    # checks: T2's variants and T3's modes on set 0, T1's probes once each
+    t2_err = t3_err = t1_err = 0
+    t2_plain = t3_plain = t1_plain = 0.0
+    for w in corpora:
+        c, t, n = staged[w][0]
+        t0 = time.perf_counter()
+        ref = dec_anatomy.walk_ref(c.cpu(), t.cpu(), n.cpu())
+        t2_plain = max(t2_plain, (time.perf_counter() - t0) * 1e3)
+        for v in dec_anatomy.VARIANTS:
+            got = dec_anatomy.anatomy(v, c, t, n)
+            err = max_err(got, ref[v])
+            if err != 0:
+                raise AssertionError(f"T2 {v} on {w} differs from its plain walk (max abs err {err})")
+            t2_err = max(t2_err, err)
+        k2_img, k2_ok = decode_vm4.decode_blocks_ref(c, t, n)
+        got = dec_anatomy.anatomy("full", c, t, n)
+        if max_err(got[:2], (k2_img.cpu(), k2_ok.cpu())) != 0 or not bool(k2_ok.all()):
+            raise AssertionError(f"T2 full on {w} differs from K2's plain version")
+        args = taped[w][0]
+        cpu_args = tuple(a.cpu() for a in args)
+        t0 = time.perf_counter()
+        exact = decode_tape.run_tape_ref(*cpu_args)
+        t3_plain = max(t3_plain, (time.perf_counter() - t0) * 1e3)
+        zero_aux = torch.zeros((BATCH, tape_probe.AUX), dtype=torch.int32)
+        for mode in tape_probe.MODES:
+            ref = (*exact, zero_aux) if mode in tape_probe.EXACT else tape_probe.probe_ref(mode, *cpu_args)
+            err = max_err(tape_probe.probe(mode, *args), ref)
+            if err != 0:
+                raise AssertionError(f"T3 {mode} on {w} differs from its plain version (max abs err {err})")
+            t3_err = max(t3_err, err)
+        log(f"[12 check] {w} set 0: T2's four variants equal the plain walk (images, flags, cursors, folds) and "
+            f"full equals K2's plain version; T3's {len(tape_probe.MODES)} modes equal their plain versions "
+            f"(the exact modes K5's plain walk)")
+    hazard = tuple(torch.from_numpy(a).to(dev) for a in tape_probe.hazard_batch())
+    want = decode_tape.run_tape_ref(*(a.cpu() for a in hazard))
+    for mode in tape_probe.EXACT:
+        err = max_err(tape_probe.probe(mode, *hazard)[:2], want)
+        if err != 0:
+            raise AssertionError(f"T3 {mode} differs from K5's plain walk on the hand tape of in-step hazards")
+    log("[12 check] T3's exact modes equal K5's plain walk on the hand tape whose records read and rewrite "
+        "each other's bytes within a step")
+    for p in probe_scalar.SMOKE:
+        inp = probe_scalar.inputs(p)
+        tile, _clk = probe_scalar.run(p, torch.from_numpy(inp).to(dev), probe_scalar.N)
+        t0 = time.perf_counter()
+        want = torch.from_numpy(probe_scalar.plain(p, inp, probe_scalar.N))
+        t1_plain += (time.perf_counter() - t0) * 1e3
+        err = max_err([tile], [want])
+        if err != 0:
+            raise AssertionError(f"T1 {p.name} differs from its plain chain (max abs err {err})")
+        t1_err = max(t1_err, err)
+    log(f"[12 check] T1's {len(probe_scalar.SMOKE)} probes at N = {probe_scalar.N}: every tile equals its plain "
+        f"chain ({t1_plain / 1e3:.1f} s of plain chains)")
+
+    # the path, with the counts at 0
+    dec_anatomy.launches = tape_probe.launches = probe_scalar.launches = 0
+    mbs = BATCH * (1 << 16) / 1e6
+    for vm in ("dispatch", "2", "4", "tape"):
+        cells = []
+        for w in corpora:
+            sec = dec_profile.profile(vm, taped[w] if vm == "tape" else staged[w])
+            cells.append(f"{w} {sec * 1e3:.4f} ms/batch {mbs / sec:.1f} MB/s")
+        log(f"[12 dec_profile] vm={vm}: " + "; ".join(cells))
+    t2_ms, t3_ms = {}, {}
+    for w in corpora:
+        t2_ms[w] = ms = {v: dec_anatomy.anatomy_ms(v, staged[w]) for v in dec_anatomy.VARIANTS}
+        log(f"[12 T2] {w} ms/batch: " + ", ".join(f"{v} {m:.4f}" for v, m in ms.items()) + "; attribution: "
+            + ", ".join(f"{k} {m:.4f}" for k, m in dec_anatomy.attribution(ms).items()))
+    for w in corpora:
+        t3_ms[w] = ms = {m: tape_probe.probe_ms(m, taped[w]) for m in tape_probe.MODES}
+        log(f"[12 T3] {w} ms/batch: " + ", ".join(f"{m} {v:.4f}" for m, v in ms.items()))
+    t1_ms = 0.0
+    for p in probe_scalar.SMOKE:
+        m = probe_scalar.measure(p, dev, probe_scalar.N)
+        t1_ms += m["event_ns_per_step"] * p.steps(probe_scalar.N) / 1e6
+        log(f"[12 T1] {p.name:22s} {m['ns_per_step']:8.3f} ns/step by the chain's clock "
+            f"({m['cycles_per_step']:.2f} cycles), {m['event_ns_per_step']:8.3f} ns/step by events")
+    launches = {"dec_anatomy": dec_anatomy.launches, "tape_probe": tape_probe.launches,
+                "probe_scalar": probe_scalar.launches}
+    log(f"[12 profiling] kernel launches on the path: {launches}")
+    kernels = {
+        "dec_anatomy": dict(err=t2_err, ms=t2_ms["text"]["full"], plain_ms=t2_plain),
+        "tape_probe": dict(err=t3_err, ms=t3_ms["text"]["full-D1"], plain_ms=t3_plain),
+        "probe_scalar": dict(err=t1_err, ms=t1_ms, plain_ms=t1_plain),
+    }
+    return kernels, launches
 
 
 def main() -> int:
@@ -605,7 +722,14 @@ def main() -> int:
         f"{len(wdata) / 1e6 / win_s:.1f} MB/s ({win_s * 1e3:.1f} ms, K4 {k4_ms:.1f} ms per 64-chunk call), "
         f"output equals the input")
 
-    # ---- 12. report ----
+    # ---- 12. the decode profiling path ----
+    t0 = time.perf_counter()
+    prof_kernels, prof_launches = profiling_path(dev)
+    kernels.update(prof_kernels)
+    launches.update(prof_launches)
+    log(f"[12 profiling] phase time {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. report ----
     info = {
         "concat": ("snappytpu_torch/csrc/concat.cu", "snappytpu/kernels/concat.py:64"),
         "decode_block": ("snappytpu_torch/csrc/decode_block.cu", "snappytpu/kernels/decode_vm4.py:259"),
@@ -613,6 +737,9 @@ def main() -> int:
         "decode_stream": ("snappytpu_torch/csrc/decode_stream.cu", "snappytpu/kernels/decode_vm2.py:492"),
         "decode_tape": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:109"),
         "decode_tape_k": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:214"),
+        "dec_anatomy": ("snappytpu_torch/csrc/dec_anatomy.cu", "tools/dec_anatomy.py:128"),
+        "tape_probe": ("snappytpu_torch/csrc/tape_probe.cu", "tools/tape_probe.py:346"),
+        "probe_scalar": ("snappytpu_torch/csrc/probe_scalar.cu", "tools/probe_scalar.py:41-497"),
     }
     if min(launches[name] for name in info) <= 0:
         raise AssertionError(f"a kernel never launched on its path: {launches}")

@@ -35,6 +35,12 @@ _SIGNATURES = {
     "snappy_decode_stream": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (tapes, nrecs, comp, out, ok, B, cap, stream) -> cudaError_t
     "snappy_run_tape": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # (comp, comp_lens, out_lens, out, ok, opc, fold, B, variant, stream) -> cudaError_t
+    "snappy_dec_anatomy": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (tapes, nrecs, comp, out, ok, aux, B, cap, mode, k, stream) -> cudaError_t
+    "snappy_tape_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (kind, a, b, in, out, clk, n, stream) -> cudaError_t
+    "snappy_probe_scalar": (_I, _I, _I, _P, _P, _P, _I, _P),
 }
 
 

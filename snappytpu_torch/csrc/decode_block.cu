@@ -36,38 +36,10 @@ namespace {
 
 using snappy_block::kBlockSize;
 using snappy_block::kPadOut;
+using snappy_block::WarpMover;  // decode_block.cuh
 
 constexpr int kThreads = 256;
 constexpr size_t kSmemBytes = kPadOut + kBlockSize;  // comp row + output image
-
-// Moves one op's bytes with the 32 lanes of a warp.  The methods are
-// __host__ __device__ only so that the shared decode loop instantiates; the
-// host side is never called.
-struct WarpMover {
-  const uint8_t* comp;
-  uint8_t* out;
-  int lane;
-
-  __host__ __device__ void literal(int64_t opc, int64_t src, int64_t len) {
-#ifdef __CUDA_ARCH__
-    for (int64_t j = lane; j < len; j += 32) out[opc + j] = comp[src + j];
-    __syncwarp();
-#endif
-  }
-
-  __host__ __device__ void copy(int64_t opc, int64_t dist, int64_t len) {
-#ifdef __CUDA_ARCH__
-    const uint8_t* from = out + opc - dist;
-    if (dist >= len) {
-      for (int64_t j = lane; j < len; j += 32) out[opc + j] = from[j];
-    } else {
-      const int d = static_cast<int>(dist);
-      for (int j = lane; j < len; j += 32) out[opc + j] = from[j % d];
-    }
-    __syncwarp();
-#endif
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__ comp_lens,

@@ -117,4 +117,36 @@ SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_le
   return ip == comp_len && opc == out_len;
 }
 
+#ifdef __CUDACC__
+// Moves one op's bytes with the 32 lanes of a warp: K2's mover
+// (decode_block.cu), and the `full` variant of the anatomy probe T2
+// (dec_anatomy.cu).  The methods are __host__ __device__ only so that the
+// shared decode loop instantiates; the host side is never called.
+struct WarpMover {
+  const uint8_t* comp;
+  uint8_t* out;
+  int lane;
+
+  __host__ __device__ void literal(int64_t opc, int64_t src, int64_t len) {
+#ifdef __CUDA_ARCH__
+    for (int64_t j = lane; j < len; j += 32) out[opc + j] = comp[src + j];
+    __syncwarp();
+#endif
+  }
+
+  __host__ __device__ void copy(int64_t opc, int64_t dist, int64_t len) {
+#ifdef __CUDA_ARCH__
+    const uint8_t* from = out + opc - dist;
+    if (dist >= len) {
+      for (int64_t j = lane; j < len; j += 32) out[opc + j] = from[j];
+    } else {
+      const int d = static_cast<int>(dist);
+      for (int j = lane; j < len; j += 32) out[opc + j] = from[j % d];
+    }
+    __syncwarp();
+#endif
+  }
+};
+#endif  // __CUDACC__
+
 }  // namespace snappy_block

@@ -34,47 +34,12 @@ namespace {
 using snappy_tape::kCompOff;
 using snappy_tape::kImageBytes;
 using snappy_tape::kOutBase;
-using snappy_tape::Record;
+using snappy_tape::WarpFetch;  // decode_tape.cuh
+using snappy_tape::WarpMove;
 
 constexpr int kThreads = 256;
 constexpr size_t kSmemBytes = kImageBytes;
 static_assert(kCompOff % 16 == 0 && kOutBase % 16 == 0 && kImageBytes % 16 == 0, "16-byte staging");
-
-// Records r..r+31 are loaded by the 32 lanes when r reaches a multiple of 32;
-// record r is then shuffled from lane r % 32.  The tape is walked in order,
-// so every lane calls this with the same r.  __host__ __device__ only so that
-// the shared walk instantiates; the host side is never called.
-struct WarpFetch {
-  const int2* tape;
-  int64_t nrecs;
-  int lane;
-  int2 held;
-
-  __host__ __device__ Record operator()(int64_t r) {
-#ifdef __CUDA_ARCH__
-    if ((r & 31) == 0) {
-      const int64_t i = r + lane;
-      held = i < nrecs ? tape[i] : make_int2(0, 0);
-    }
-    const int k = static_cast<int>(r & 31);
-    return snappy_tape::decode_record(__shfl_sync(0xFFFFFFFFu, held.x, k), __shfl_sync(0xFFFFFFFFu, held.y, k));
-#else
-    return Record{};
-#endif
-  }
-};
-
-struct WarpMove {
-  uint8_t* img;
-  int lane;
-
-  __host__ __device__ void operator()(const Record& r) {
-#ifdef __CUDA_ARCH__
-    snappy_tape::lane_move(img, r, lane);
-    __syncwarp();
-#endif
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 run_tape_kernel(const int32_t* __restrict__ tapes, const int32_t* __restrict__ nrecs,

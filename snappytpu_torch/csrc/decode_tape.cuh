@@ -87,4 +87,44 @@ SNAPPY_HD bool run_tape(int64_t nrecs, int64_t cap, Fetch& fetch, Move& move) {
   return true;
 }
 
+#ifdef __CUDACC__
+// K5's fetch and move (decode_tape.cu), also the `full-D1` mode of the tape
+// probe T3 (tape_probe.cu).  Records r..r+31 are loaded by the 32 lanes when
+// r reaches a multiple of 32; record r is then shuffled from lane r % 32.
+// The tape is walked in order, so every lane calls this with the same r.
+// __host__ __device__ only so that the shared walk instantiates; the host
+// side is never called.
+struct WarpFetch {
+  const int2* tape;
+  int64_t nrecs;
+  int lane;
+  int2 held;
+
+  __host__ __device__ Record operator()(int64_t r) {
+#ifdef __CUDA_ARCH__
+    if ((r & 31) == 0) {
+      const int64_t i = r + lane;
+      held = i < nrecs ? tape[i] : make_int2(0, 0);
+    }
+    const int k = static_cast<int>(r & 31);
+    return decode_record(__shfl_sync(0xFFFFFFFFu, held.x, k), __shfl_sync(0xFFFFFFFFu, held.y, k));
+#else
+    return Record{};
+#endif
+  }
+};
+
+struct WarpMove {
+  uint8_t* img;
+  int lane;
+
+  __host__ __device__ void operator()(const Record& r) {
+#ifdef __CUDA_ARCH__
+    lane_move(img, r, lane);
+    __syncwarp();
+#endif
+  }
+};
+#endif  // __CUDACC__
+
 }  // namespace snappy_tape

@@ -56,26 +56,44 @@ def build_tapes(comp_np: np.ndarray, comp_lens: np.ndarray, out_lens: np.ndarray
     return cpu.build_tapes(comp_np, comp_lens, out_lens, COMP_OFF, OUT_BASE, TAPE_MAX)
 
 
-def _run_row(tape: list, nr: int, row: bytes, cap: int):
-    """One block's records in order -> (bytearray of BS bytes, ok)."""
-    img = bytearray(IMAGE_BYTES)
-    img[COMP_OFF:OUT_BASE] = row
+def records(tape: list, nr: int, cap: int):
+    """One block's records as decode_tape.cuh's walk accepts them -> (list of
+    (src, dst, len, period), ok): the records before the first one outside
+    the image (or an overlapping copy), and whether there was none and
+    0 <= nr <= cap."""
     if not 0 <= nr <= cap:
-        return img[OUT_BASE:], False
+        return [], False
+    out = []
     for r in range(nr):
         w0, dst = tape[2 * r] & 0xFFFFFFFF, tape[2 * r + 1]
         src, ln, p = w0 & 0x3FFFF, w0 >> 20, (0, 1, 2, 4)[(w0 >> 18) & 3]
         if ln > PIECE_MAX or dst < 0 or dst + ln > IMAGE_BYTES:
-            return img[OUT_BASE:], False
+            return out, False
+        if p and dst < p:
+            return out, False
+        if not p and (src + ln > IMAGE_BYTES or (src < dst + ln and dst < src + ln)):  # outside, or overlapping
+            return out, False
+        out.append((src, dst, ln, p))
+    return out, True
+
+
+def image(row: bytes) -> bytearray:
+    """A block's unified image before its first record."""
+    img = bytearray(IMAGE_BYTES)
+    img[COMP_OFF:OUT_BASE] = row
+    return img
+
+
+def _run_row(tape: list, nr: int, row: bytes, cap: int):
+    """One block's records in order -> (bytearray of BS bytes, ok)."""
+    img = image(row)
+    recs, ok = records(tape, nr, cap)
+    for src, dst, ln, p in recs:
         if p:
-            if dst < p:
-                return img[OUT_BASE:], False
             img[dst : dst + ln] = (img[dst - p : dst] * (ln // p + 1))[:ln]
         else:
-            if src + ln > IMAGE_BYTES or (src < dst + ln and dst < src + ln):  # outside, or overlapping
-                return img[OUT_BASE:], False
             img[dst : dst + ln] = img[src : src + ln]
-    return img[OUT_BASE:], True
+    return img[OUT_BASE:], ok
 
 
 def run_tape_ref(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor):
