@@ -9,13 +9,16 @@ drives the port's paths at full size, each with its kernels' launch counts
 set to 0 just before it and read just after:
 
   1-2   environment, build
-  3-4   K1 (concat) and K2 (block decoder) against their plain versions
+  3-4   K1 (concat) and K2 (the pipelined block decoder) against their plain
+        versions
   5     the main path: a 32 MB mixed corpus (512 blocks of 64 KiB) encoded on
         the card with both profiles in batches of 128 blocks (torch ops + K1),
         decoded on the card by K2, compared block by block on the device
   6     the user API with device="cuda"
-  7     K3 against its plain version; its path is the A/B twin of phase 5's
-        decode (the fast batches through K3)
+  7     K3 (the op-by-op block decoder) against its plain version; its path is
+        the A/B twin of phase 5's decode (the fast batches through K3); then
+        K2 and K3 timed in turns (K2, K3, K3, K2) on phase 5's batches of
+        both profiles
   8     K5 and K6 against their plain versions on a 128-block host batch
         (own, native-compressor, mutated, tape-overflow and pad blocks); the
         tape route with its K2 fallback against K2
@@ -36,8 +39,11 @@ set to 0 just before it and read just after:
   13    report
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
-and one JSON line with each kernel's launches on its path, error against its
-plain version and times; the last line is {"ok": true, "device": {...}}.
+and one JSON line with each kernel's launches on its path (and on every
+path that launched it), error against its plain version, times and bound:
+the bytes its timed call must move (each input byte read once, each output
+byte written once) over the card's 3.35 TB/s; the last line is
+{"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero; it refuses to run without
 CUDA.  Needs no JAX.
 """
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 BATCH = 128
 MAIN_MB = 32
 WIN_MB = 8  # the windowed path's stream: 128+ chunks, so two K4 calls of 64
@@ -89,6 +96,47 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def bound_ms(nbytes: int) -> float:
+    """The least time the card could take to move nbytes through its memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def block_bytes(comp_lens, n: int) -> int:
+    """A block decoder's bytes: the compressed bytes its ops can read (each
+    row up to comp_len), the two length vectors, the rows and flags out."""
+    from snappytpu_torch.format import constants as C
+
+    cl = np.clip(np.asarray(comp_lens, np.int64), 0, C.MAX_COMPRESSED_BLOCK_SIZE)
+    return int(cl.sum()) + 8 * n + n * C.MAX_BLOCK_SIZE + n
+
+
+def _counters():
+    """Every kernel's launch count: name -> (module, attribute)."""
+    from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4
+    from snappytpu_torch.tools import dec_anatomy, probe_scalar, tape_probe
+
+    return {
+        "concat": (concat, "launches"),
+        "decode_block": (decode_vm4, "launches"),
+        "decode_block_vm2": (decode_vm2, "launches"),
+        "decode_stream": (decode_vm2, "stream_launches"),
+        "decode_tape": (decode_tape, "launches"),
+        "decode_tape_k": (decode_tape, "k_launches"),
+        "dec_anatomy": (dec_anatomy, "launches"),
+        "tape_probe": (tape_probe, "launches"),
+        "probe_scalar": (probe_scalar, "launches"),
+    }
+
+
+def zero_counts() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+
+
 def golden_streams():
     out = []
     for path in sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "*.snappy"))):
@@ -105,9 +153,9 @@ def golden_streams():
 def host_rows(stream: bytes):
     """A block-splittable stream -> its (rows, comp_lens, out_lens) on the
     host, by the native scan and split, as the API's block route cuts it."""
-    from snappytpu import cpu
-    from snappytpu.format import constants as C
-    from snappytpu.stream import framing
+    from snappytpu_torch import cpu
+    from snappytpu_torch.format import constants as C
+    from snappytpu_torch.stream import framing
 
     arr = np.frombuffer(stream, np.uint8)
     n, start = framing.read_preamble(arr)
@@ -120,9 +168,9 @@ def tape_check_batch(rng, base, base_cl, base_ol):
     """128 host rows for K5: phase 4's own and golden streams, the native
     compressor's streams, one all-1-byte-literal block (tape overflow, -9),
     one pad block, and mutated copies (the first one a byte short, -10)."""
-    from snappytpu import cpu
-    from snappytpu.bench import corpus
-    from snappytpu.format import constants as C
+    from snappytpu_torch import cpu
+    from snappytpu_torch.bench import corpus
+    from snappytpu_torch.format import constants as C
 
     rows, cls, ols = [base], list(base_cl), list(base_ol)
     nrows, ncl, nol = host_rows(cpu.compress(corpus.mixed(16 * C.MAX_BLOCK_SIZE + 777, seed=19)))
@@ -155,7 +203,7 @@ def host_routes(stream: bytes, raw: bytes, dev) -> dict:
     route makes two whole passes, in the order tape, K2, K2, tape; the
     second pass of each is reported, so neither route pays the other's
     first-touch host allocations."""
-    from snappytpu import cpu
+    from snappytpu_torch import cpu
     from snappytpu_torch.kernels import decode_tape, decode_vm4
 
     rows, cls, ols = host_rows(stream)
@@ -206,7 +254,7 @@ def host_routes(stream: bytes, raw: bytes, dev) -> dict:
 def run_tape_k_path(stream: bytes, raw: bytes, dev) -> None:
     """The host-resident stream's tapes through K6 with K=4, batches padded
     to a multiple of 4 with zero-length blocks; the output must equal `raw`."""
-    from snappytpu import cpu
+    from snappytpu_torch import cpu
     from snappytpu_torch.kernels import decode_tape
 
     rows, cls, ols = host_rows(stream)
@@ -231,6 +279,7 @@ def profiling_path(dev) -> tuple[dict, dict]:
     counts at 0, the path runs: dec_profile's four decoders, T2's variants
     and T3's modes on all sets, T1's 16 probes at N = 200,000.  Returns
     (kernels entries, launch counts of the path)."""
+    from snappytpu_torch.format.constants import MAX_BLOCK_SIZE as BS
     from snappytpu_torch.kernels import decode_tape, decode_vm4
     from snappytpu_torch.tools import _staged, dec_anatomy, dec_profile, probe_scalar, tape_probe
 
@@ -302,7 +351,7 @@ def profiling_path(dev) -> tuple[dict, dict]:
         f"chain ({t1_plain / 1e3:.1f} s of plain chains)")
 
     # the path, with the counts at 0
-    dec_anatomy.launches = tape_probe.launches = probe_scalar.launches = 0
+    zero_counts()
     mbs = BATCH * (1 << 16) / 1e6
     for vm in ("dispatch", "2", "4", "tape"):
         cells = []
@@ -324,13 +373,21 @@ def profiling_path(dev) -> tuple[dict, dict]:
         t1_ms += m["event_ns_per_step"] * p.steps(probe_scalar.N) / 1e6
         log(f"[12 T1] {p.name:22s} {m['ns_per_step']:8.3f} ns/step by the chain's clock "
             f"({m['cycles_per_step']:.2f} cycles), {m['event_ns_per_step']:8.3f} ns/step by events")
-    launches = {"dec_anatomy": dec_anatomy.launches, "tape_probe": tape_probe.launches,
-                "probe_scalar": probe_scalar.launches}
+    launches = read_counts()
     log(f"[12 profiling] kernel launches on the path: {launches}")
+    # bounds: bytes in and out of one timed call (a 128-block text set for
+    # T2 and T3, the 16 probes' tiles for T1); a probe is timed for its
+    # dependent chain, not its bandwidth, so its bound only says how far
+    # from moving bytes the chain is
+    text = list(zip(staged["text"], taped["text"]))
+    t2_bytes = np.mean([int(t.sum()) for (_c, t, _n), _tp in text]) + BATCH * (8 + BS + 1 + 4 + 4)
+    t3_bytes = np.mean([int(t.sum()) + 8 * int(nr.clamp(min=0).sum()) for (_c, t, _n), (_tp, nr, _cp) in text]) \
+        + BATCH * (4 + BS + 1 + 4 * tape_probe.AUX)
+    t1_bytes = sum(probe_scalar.inputs(p).nbytes + 8 * 128 * 4 + 16 for p in probe_scalar.SMOKE)  # tiles, clocks
     kernels = {
-        "dec_anatomy": dict(err=t2_err, ms=t2_ms["text"]["full"], plain_ms=t2_plain),
-        "tape_probe": dict(err=t3_err, ms=t3_ms["text"]["full-D1"], plain_ms=t3_plain),
-        "probe_scalar": dict(err=t1_err, ms=t1_ms, plain_ms=t1_plain),
+        "dec_anatomy": dict(err=t2_err, ms=t2_ms["text"]["full"], plain_ms=t2_plain, bound_ms=bound_ms(t2_bytes)),
+        "tape_probe": dict(err=t3_err, ms=t3_ms["text"]["full-D1"], plain_ms=t3_plain, bound_ms=bound_ms(t3_bytes)),
+        "probe_scalar": dict(err=t1_err, ms=t1_ms, plain_ms=t1_plain, bound_ms=bound_ms(t1_bytes)),
     }
     return kernels, launches
 
@@ -340,16 +397,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from snappytpu import cpu
-    from snappytpu.bench import corpus
-    from snappytpu.format import constants as C
-    from snappytpu.format.varint import encode_varint
-    from snappytpu.stream import framing
-    from snappytpu_torch import _build, api, cli
+    from snappytpu_torch import _build, api, cli, cpu
+    from snappytpu_torch.bench import corpus
+    from snappytpu_torch.format import constants as C
+    from snappytpu_torch.format.varint import encode_varint
     from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4
-    from snappytpu_torch.stream import filecodec
     from snappytpu_torch.kernels.decode_vm import decode_blocks_vm
     from snappytpu_torch.kernels.encode_v2 import encode_blocks_v2
+    from snappytpu_torch.stream import filecodec, framing
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -372,6 +427,8 @@ def main() -> int:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line or "smem" in line:
             log(f"[2 build] {line.strip()}")
+    log("[2 build] K2 is decode_blocks_kernel (parse -> move pipeline), K3 decode_blocks_vm2_kernel (op by op), "
+        "both in decode_block.cu")
 
     rng = np.random.default_rng(7)
     kernels = {}
@@ -398,7 +455,8 @@ def main() -> int:
     k1_ms = event_ms(lambda: concat.concat_rows_words(words, lens, PAD_OUT), 50)
     k1_plain = event_ms(lambda: concat.concat_rows_ref(words.view(torch.uint8), lens, PAD_OUT), 20)
     log(f"[3 K1] concat (128,64,384) words: equal to plain; kernel {k1_ms:.4f} ms, plain torch {k1_plain:.4f} ms")
-    kernels["concat"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain)
+    k1_bytes = int(lens_np.sum()) + lens_np.nbytes + BATCH * PAD_OUT
+    kernels["concat"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain, bound_ms=bound_ms(k1_bytes))
 
     # ---- 4. K2 block decoder against its plain version ----
     samples = [
@@ -461,7 +519,8 @@ def main() -> int:
     k2_plain = host_ms(lambda: decode_vm4.decode_blocks_ref(ct, cl, ol), 1)
     log(f"[4 K2] {nb} blocks ({int(okm.sum())} ok, {nb - int(okm.sum())} rejected, flags and ok rows equal to plain); "
         f"kernel {k2_ms:.4f} ms per batch, plain {k2_plain:.1f} ms per batch ({k2_plain / nb:.2f} ms/block)")
-    kernels["decode_block"] = dict(err=k2_err, ms=k2_ms, plain_ms=k2_plain)
+    chk_bound = bound_ms(block_bytes(comp_lens, nb))
+    kernels["decode_block"] = dict(err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=chk_bound)
 
     # ---- 5. the main path: 32 MB, encode -> decode -> check, on the card ----
     raw = corpus.mixed(MAIN_MB << 20, seed=42)
@@ -472,9 +531,8 @@ def main() -> int:
     ll = [torch.from_numpy(lens_np[i * BATCH : (i + 1) * BATCH]).to(dev) for i in range(nbat)]
     torch.cuda.synchronize()
     log(f"[5 main] {data.size} bytes = {blocks_np.shape[0]} blocks in {nbat} device batches of {BATCH}")
-    concat.launches = 0
-    decode_vm4.launches = 0
-    results = {}
+    zero_counts()
+    results, encs = {}, {}
     for profile in ("fast", "dense"):
         dense = profile == "dense"
         encode_blocks_v2(bl[0], ll[0], dense)  # warm-up (allocator, sort workspaces)
@@ -514,8 +572,8 @@ def main() -> int:
             raise AssertionError(f"{profile}: card rows differ from the CPU path on the first 4 blocks")
         log(f"[5 main] {profile}: first 4 rows equal the port's CPU path")
 
+        encs[profile] = enc
         if profile == "fast":
-            enc_fast = enc
             comp_np = torch.cat([c for c, _t in enc]).cpu().numpy()
             tot_np = totals.cpu().numpy()
             stream = encode_varint(data.size) + b"".join(comp_np[i, : tot_np[i]].tobytes() for i in range(len(tot_np)))
@@ -525,11 +583,11 @@ def main() -> int:
                 log("[5 main] fast: the native C++ decoder decodes the stream to the input")
             else:
                 log("[5 main] fast: native C++ runtime did not build; independent decode skipped")
-    launches = {"concat": concat.launches, "decode_block": decode_vm4.launches}
-    log(f"[5 main] kernel launches on the main path: {launches}")
+    paths = {"main": read_counts()}
+    log(f"[5 main] kernel launches on the main path: {paths['main']}")
     log(f"[5 main] summary {json.dumps(results)}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if min(paths["main"]["concat"], paths["main"]["decode_block"]) <= 0:
+        raise AssertionError(f"a kernel of the main path never launched: {paths['main']}")
 
     # ---- 6. the user API on the card ----
     small = corpus.mixed(3 << 20, seed=5)
@@ -545,7 +603,7 @@ def main() -> int:
             raise AssertionError(f"api.decompress failed on golden stream {name}")
     log("[6 api] card output equals the CPU path; golden google/snappy streams decode")
 
-    # ---- 7. K3: a second entry onto K2's kernel ----
+    # ---- 7. K3, the op-by-op decoder; K2 against K3 on the main path's batches ----
     out3, ok3 = decode_vm2.decode_blocks_vm2(ct, cl, ol)
     if not torch.equal(ok3, ok_p):
         raise AssertionError(f"K3 ok flags differ from plain: {torch.nonzero(ok3 != ok_p).flatten().tolist()}")
@@ -554,17 +612,35 @@ def main() -> int:
         raise AssertionError(f"K3 rows differ from plain where ok (max abs err {k3_err})")
     k3_ms = event_ms(lambda: decode_vm2.decode_blocks_vm2(ct, cl, ol), 10)
     k3_plain = host_ms(lambda: decode_vm4.decode_blocks_ref(ct, cl, ol), 1)
-    kernels["decode_block_vm2"] = dict(err=k3_err, ms=k3_ms, plain_ms=k3_plain)
+    kernels["decode_block_vm2"] = dict(err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=chk_bound)
     # its path: the A/B twin of phase 5's decode, on the fast profile's batches
-    decode_vm2.launches = 0
-    dec3 = [decode_vm2.decode_blocks_vm2(c, t, n) for (c, t), n in zip(enc_fast, ll)]
-    launches["decode_block_vm2"] = decode_vm2.launches
+    zero_counts()
+    dec3 = [decode_vm2.decode_blocks_vm2(c, t, n) for (c, t), n in zip(encs["fast"], ll)]
+    paths["main_ab_k3"] = read_counts()
     ok_count = sum(int(ok.sum()) for _o, ok in dec3)
     match = sum(int((o == b).all(dim=1).sum()) for (o, _ok), b in zip(dec3, bl))
     if ok_count != blocks_np.shape[0] or match != blocks_np.shape[0]:
         raise AssertionError("K3 did not decode phase 5's fast batches to the input")
-    log(f"[7 K3] check batch: flags and ok rows equal to plain; kernel {k3_ms:.4f} ms, plain {k3_plain:.1f} ms; "
-        f"A/B path: phase 5's fast batches decode to the input in {launches['decode_block_vm2']} launches")
+    log(f"[7 K3] check batch: flags and ok rows equal to plain; kernel {k3_ms:.4f} ms (K2 {k2_ms:.4f} ms), "
+        f"plain {k3_plain:.1f} ms; A/B path: phase 5's fast batches decode to the input in "
+        f"{paths['main_ab_k3']['decode_block_vm2']} launches")
+    # K2 against K3 on phase 5's batches, in one call, in turns K2, K3, K3, K2
+    decoders = {"K2": decode_vm4.decode_blocks_vm4, "K3": decode_vm2.decode_blocks_vm2}
+    ab = {}
+    for profile, enc in encs.items():
+        per = {"K2": [], "K3": []}
+        for who in ("K2", "K3", "K3", "K2"):
+            fn = decoders[who]
+            per[who].append(event_ms(lambda: [fn(c, t, n) for (c, t), n in zip(enc, ll)], 5) / len(enc))
+        batch_bound = bound_ms(sum(block_bytes(t.cpu().numpy(), t.shape[0]) for _c, t in enc)) / len(enc)
+        ms = {who: sum(v) / len(v) for who, v in per.items()}
+        ab[profile] = dict(per, bound_ms=batch_bound)
+        mb = data.size / 1e6
+        log(f"[7 K2/K3] {profile}: ms per 128-block batch K2 {per['K2'][0]:.4f}, K3 {per['K3'][0]:.4f}, "
+            f"K3 {per['K3'][1]:.4f}, K2 {per['K2'][1]:.4f}; decode {mb / (ms['K2'] * nbat / 1e3):.1f} MB/s through "
+            f"K2, {mb / (ms['K3'] * nbat / 1e3):.1f} MB/s through K3; K2/K3 = {ms['K2'] / ms['K3']:.3f}; "
+            f"bound {batch_bound:.4f} ms per batch (K2 at {batch_bound / ms['K2'] * 100:.2f} % of it)")
+    log(f"[7 K2/K3] summary {json.dumps(ab)}")
 
     # ---- 8. K5 / K6 on a 128-block host batch ----
     nbase = base.shape[0]  # phase 4's own streams of both profiles and golden streams, all valid
@@ -600,8 +676,12 @@ def main() -> int:
         if k6_err != 0 or not torch.equal(o6, out5):
             raise AssertionError(f"K6 (K={K}) rows differ from plain or K5 (max abs err {k6_err})")
         k6[K] = event_ms(lambda: decode_tape._run_tape_k(tp, nr, rw, K=K), 10)
-    kernels["decode_tape"] = dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain)
-    kernels["decode_tape_k"] = dict(err=k6_err, ms=k6[4], plain_ms=k5_plain)
+    # K5's bytes: the records (8 bytes each), the counts, the compressed
+    # bytes the literal records read (each row up to comp_len), rows and flags
+    k5_bytes = 8 * int(np.maximum(nrecs_np, 0).sum()) + 4 * len(nrecs_np) + int(np.asarray(tape_cl).sum()) \
+        + tape_rows.shape[0] * (BS + 1)
+    kernels["decode_tape"] = dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes))
+    kernels["decode_tape_k"] = dict(err=k6_err, ms=k6[4], plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes))
     log(f"[8 K5] {tape_rows.shape[0]} host blocks ({int(ok5.sum())} ok; nrecs max {int(nrecs_np.max())}, "
         f"{int((nrecs_np == -9).sum())} -9, "
         f"{int((nrecs_np == -10).sum())} -10): equal to plain; the route with its K2 fallback equals K2; "
@@ -651,7 +731,8 @@ def main() -> int:
     got2 = b"".join(out4b_np[i, : wol[64 + i]].tobytes() for i in range(out4b_np.shape[0]))
     if k4_err != 0 or got2 != wdata[len(got) : len(got) + len(got2)]:
         raise AssertionError(f"K4 rows with a nonzero ctx0 differ from plain or the input (max abs err {k4_err})")
-    kernels["decode_stream"] = dict(err=k4_err, ms=k4_ms, plain_ms=k4_plain)
+    k4_bytes = block_bytes(wcl, len(wcl)) + 4 * len(wcl) + BS  # + ctx_lens and ctx0
+    kernels["decode_stream"] = dict(err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=bound_ms(k4_bytes))
     log(f"[9 K4] chunks 0-63 ({len(got)} bytes, zero ctx0) and 64-127 ({len(got2)} bytes, ctx0 = the card's last "
         f"64 KiB) of a {len(wdata)}-byte unaligned stream ({len(chunks)} chunks; host split {split_s * 1e3:.1f} ms): "
         f"equal to plain and the input; kernel {k4_ms:.3f} ms per call, plain {k4_plain:.1f} ms")
@@ -670,14 +751,13 @@ def main() -> int:
             fstream = f.read()
         if fstream != api.compress(raw, "fast", device=dev) or nbytes != len(fstream):
             raise AssertionError("compress_file differs from api.compress")
-        decode_tape.launches = decode_tape.k_launches = decode_vm4.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         filecodec.decompress_file(comp_f, out_f, device=dev)
         torch.cuda.synchronize()
         dfile_s = time.perf_counter() - t0
-        launches["decode_tape"] = decode_tape.launches
-        k2_fallback = decode_vm4.launches
+        paths["host"] = read_counts()
         with open(out_f, "rb") as f:
             if f.read() != raw:
                 raise AssertionError("decompress_file did not give back the input")
@@ -691,62 +771,69 @@ def main() -> int:
                 raise AssertionError("the CLI round trip differs from its input")
     mb = len(raw) / 1e6
     log(f"[10 host] compress_file {mb / cfile_s:.1f} MB/s, bytes equal api.compress ({len(fstream)} bytes); "
-        f"decompress_file {mb / dfile_s:.1f} MB/s through the tape route ({launches['decode_tape']} K5 launches, "
-        f"{k2_fallback} K2 fallback launches), output equals the input; CLI -c/-d round trip ok")
+        f"decompress_file {mb / dfile_s:.1f} MB/s through the tape route ({paths['host']['decode_tape']} K5 "
+        f"launches, {paths['host']['decode_block']} K2 fallback launches), output equals the input; CLI -c/-d round trip ok")
     routes = host_routes(fstream, raw, dev)
     for name, parts in routes.items():
         total = sum(parts.values())
         log(f"[10 host] {name} route: {mb / total:.1f} MB/s ({total * 1e3:.1f} ms; "
             + ", ".join(f"{k} {v * 1e3:.1f} ms = {mb / v:.0f} MB/s" for k, v in parts.items()) + ")")
     # K6's path: the A/B twin of the tape route, on the same host rows
-    decode_tape.k_launches = 0
+    zero_counts()
     run_tape_k_path(fstream, raw, dev)
-    launches["decode_tape_k"] = decode_tape.k_launches
+    paths["host_ab_k6"] = read_counts()
     log(f"[10 host] A/B path: the 32 MB stream's tapes through K6 (K=4) decode to the input in "
-        f"{launches['decode_tape_k']} launches")
+        f"{paths['host_ab_k6']['decode_tape_k']} launches")
 
     # ---- 11. the windowed path: an unaligned 8 MB stream through api.decompress ----
-    decode_vm2.stream_launches = api.host_fallbacks = 0
+    zero_counts()
+    api.host_fallbacks = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if api.decompress(wstream, device=dev) != wdata:
         raise AssertionError("api.decompress of the unaligned stream differs from its input")
     torch.cuda.synchronize()
     win_s = time.perf_counter() - t0
-    launches["decode_stream"] = decode_vm2.stream_launches
+    paths["windowed"] = read_counts()
     if api.host_fallbacks != 0:
         raise AssertionError("K4 refused the unaligned stream; the host decoder decoded it")
-    if launches["decode_stream"] < 2:
-        raise AssertionError(f"the windowed path ran {launches['decode_stream']} K4 calls, fewer than 2")
-    log(f"[11 windowed] {len(wdata)} bytes, {len(chunks)} chunks in {launches['decode_stream']} K4 calls: "
+    if paths["windowed"]["decode_stream"] < 2:
+        raise AssertionError(f"the windowed path ran {paths['windowed']['decode_stream']} K4 calls, fewer than 2")
+    log(f"[11 windowed] {len(wdata)} bytes, {len(chunks)} chunks in {paths['windowed']['decode_stream']} K4 calls: "
         f"{len(wdata) / 1e6 / win_s:.1f} MB/s ({win_s * 1e3:.1f} ms, K4 {k4_ms:.1f} ms per 64-chunk call), "
         f"output equals the input")
 
     # ---- 12. the decode profiling path ----
     t0 = time.perf_counter()
-    prof_kernels, prof_launches = profiling_path(dev)
+    prof_kernels, paths["profiling"] = profiling_path(dev)
     kernels.update(prof_kernels)
-    launches.update(prof_launches)
     log(f"[12 profiling] phase time {time.perf_counter() - t0:.1f} s")
 
     # ---- 13. report ----
-    info = {
-        "concat": ("snappytpu_torch/csrc/concat.cu", "snappytpu/kernels/concat.py:64"),
-        "decode_block": ("snappytpu_torch/csrc/decode_block.cu", "snappytpu/kernels/decode_vm4.py:259"),
-        "decode_block_vm2": ("snappytpu_torch/csrc/decode_block.cu", "snappytpu/kernels/decode_vm2.py:378"),
-        "decode_stream": ("snappytpu_torch/csrc/decode_stream.cu", "snappytpu/kernels/decode_vm2.py:492"),
-        "decode_tape": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:109"),
-        "decode_tape_k": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:214"),
-        "dec_anatomy": ("snappytpu_torch/csrc/dec_anatomy.cu", "tools/dec_anatomy.py:128"),
-        "tape_probe": ("snappytpu_torch/csrc/tape_probe.cu", "tools/tape_probe.py:346"),
-        "probe_scalar": ("snappytpu_torch/csrc/probe_scalar.cu", "tools/probe_scalar.py:41-497"),
+    info = {  # name -> (source, TPU kernel it replaces, the path it runs on)
+        "concat": ("snappytpu_torch/csrc/concat.cu", "snappytpu/kernels/concat.py:64", "main"),
+        "decode_block": ("snappytpu_torch/csrc/decode_block.cu", "snappytpu/kernels/decode_vm4.py:259", "main"),
+        "decode_block_vm2": ("snappytpu_torch/csrc/decode_block.cu", "snappytpu/kernels/decode_vm2.py:378",
+                             "main_ab_k3"),
+        "decode_stream": ("snappytpu_torch/csrc/decode_stream.cu", "snappytpu/kernels/decode_vm2.py:492", "windowed"),
+        "decode_tape": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:109", "host"),
+        "decode_tape_k": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:214",
+                          "host_ab_k6"),
+        "dec_anatomy": ("snappytpu_torch/csrc/dec_anatomy.cu", "tools/dec_anatomy.py:128", "profiling"),
+        "tape_probe": ("snappytpu_torch/csrc/tape_probe.cu", "tools/tape_probe.py:346", "profiling"),
+        "probe_scalar": ("snappytpu_torch/csrc/probe_scalar.cu", "tools/probe_scalar.py:41-497", "profiling"),
     }
-    if min(launches[name] for name in info) <= 0:
-        raise AssertionError(f"a kernel never launched on its path: {launches}")
+    missing = [name for name, (_s, _r, path) in info.items() if paths[path][name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: {missing}; {paths}")
+    log(f"[13 report] launches by path: {json.dumps(paths)}")
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": info[name][0], "replaces": info[name][1],
-         "launches": launches[name], "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+         "launches": paths[info[name][2]][name],
+         "launches_by_path": {path: c[name] for path, c in paths.items() if c[name]},
+         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}
         for name, k in kernels.items()
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

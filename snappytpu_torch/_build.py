@@ -31,6 +31,7 @@ _SIGNATURES = {
     "snappy_concat_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (comp, comp_lens, out_lens, out, ok, B, stream) -> cudaError_t
     "snappy_decode_blocks": (_P, _P, _P, _P, _P, _I, _P),
+    "snappy_decode_blocks_vm2": (_P, _P, _P, _P, _P, _I, _P),
     # (comp, comp_lens, out_lens, ctx_lens, ctx0, out, ok, N, stream) -> cudaError_t
     "snappy_decode_stream": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (tapes, nrecs, comp, out, ok, B, cap, stream) -> cudaError_t

@@ -23,16 +23,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snappytpu import cpu
-from snappytpu.format import constants as C
-from snappytpu.format.varint import encode_varint
-from snappytpu.model.decode import CorruptError, decode_ops
-from snappytpu.stream import framing
-
+from . import cpu
+from .format import constants as C
+from .format.varint import encode_varint
 from .kernels.decode_tape import decode_blocks_tape
 from .kernels.decode_vm import decode_blocks_vm as decode_blocks
 from .kernels.decode_vm2 import decode_stream_vm
 from .kernels.encode_v2 import encode_blocks_v2
+from .model.decode import CorruptError, decode_ops
+from .stream import framing
 
 _MAX_DEVICE_BATCH = 128  # blocks per device call (8 MiB input per call)
 _WINDOWED_BATCH = 64     # chunks per decode_stream_vm call (~4.6 MB comp)

@@ -8,7 +8,7 @@ decompresses, `-r` prints a results report.  Extras as in snappytpu.cli:
 `--window-mb` (file-to-file through the port's bounded-memory file codec).
 `--device` names the torch device of the `device` backend (default `cuda`;
 the CLI refuses it when torch sees no CUDA GPU).  The `cpu` and `model`
-backends are the JAX-free host codecs of snappytpu, reused as they are.
+backends are the port's copies of snappytpu's JAX-free host codecs.
 
 Usage:
   python -m snappytpu_torch.cli -c in out
@@ -25,8 +25,8 @@ import sys
 
 import torch
 
-from snappytpu.bench.metrics import Result, Timer, write_result_csv
-from snappytpu.format import constants as C
+from .bench.metrics import Result, Timer, write_result_csv
+from .format import constants as C
 
 
 def _codec(backend: str, profile: str, device):
@@ -36,12 +36,12 @@ def _codec(backend: str, profile: str, device):
         return functools.partial(api.compress, profile=profile, device=device), functools.partial(
             api.decompress, device=device)
     if backend == "cpu":
-        from snappytpu import cpu
+        from . import cpu
 
         if cpu.available:
             return cpu.compress, cpu.decompress
         print("native backend unavailable, falling back to model", file=sys.stderr)
-    from snappytpu import model
+    from . import model
 
     return model.compress, model.decompress
 

@@ -1,20 +1,21 @@
-// T2: the decode anatomy probe — K2's op walk with its mover stripped.
+// T2: the decode anatomy probe — K3's op walk with its mover stripped.
 //
 // Replaces the TPU kernel of tools/dec_anatomy.py `decode` (the kernels of
 // `make_decoder(variant)`), which times stripped variants of the v2 piece
 // loop to split the block decoder's serial chain into parse, window read,
-// merge and dynamic addressing.  Here every variant is K2's walk
-// (snappy_block::decode_block in decode_block.cuh, unchanged) with another
-// mover.  The walk's trip depends only on the parse, never on moved bytes,
-// so every variant runs the same ops and ends at the same output cursor:
+// merge and dynamic addressing.  Here every variant is K3's walk
+// (snappy_block::decode_block in decode_block.cuh, one op at a time; K2
+// pipelines the same rules in decode_pipe.cuh) with another mover.  The
+// walk's trip depends only on the parse, never on moved bytes, so every
+// variant runs the same ops and ends at the same output cursor:
 //   parse   the mover moves nothing: the parse chain and the loop alone
 //   window  the lanes read each op's source bytes (the literal's bytes in the
 //           compressed row, or the copy's bytes `dist` back in the output
-//           image, by K2's index j or j % dist) and fold them into a
+//           image, by K3's index j or j % dist) and fold them into a
 //           per-lane word; nothing is written, so the image stays zero and a
 //           copy reads zeros.  window − parse is the reads and the
 //           __syncwarp per op
-//   full    K2's mover exactly (snappy_block::WarpMover): the real decode.
+//   full    K3's mover exactly (snappy_block::WarpMover): the real decode.
 //           full − window is the writes
 //   fixed   full's reads and writes, every op at one fixed address: bytes
 //           from compressed byte 64 on (j or j % dist), written to the
@@ -34,8 +35,8 @@
 // output row to keep the stripped dataflow alive; here the fold and the
 // cursor are outputs in their own right.
 //
-// What bounds it on the H100: K2's, the serial op chain, one block per SM;
-// the variants differ only in what each op's 32 lanes do.  Design: K2's
+// What bounds it on the H100: K3's, the serial op chain, one block per SM;
+// the variants differ only in what each op's 32 lanes do.  Design: K3's
 // shape — one thread block of 256 threads per 64 KiB block, the 73,728-byte
 // row and a zeroed 65,536-byte image in dynamic shared memory, warp 0 walks.
 

@@ -16,11 +16,15 @@
 //   * the loop runs while opc < out_len and ip < comp_len
 //   * ok = no bad op, ip == comp_len and opc == out_len
 // ctx_len is how many decoded bytes lie before the block's output: 0 for an
-// independent block (K2), up to 65536 for a chunk of the windowed decoder
-// (K4, the rule of decode_vm2.py `_block_loop.parse_at`).  Lengths outside
-// the row (comp_len not in [0, 73728], out_len not in [0, 65536]) report
-// not ok.  All bounds arithmetic is 64-bit (a 4-byte
-// literal length reaches 2^30), and no byte past the 73728-byte row is read.
+// independent block (K2, K3), up to 65536 for a chunk of the windowed
+// decoder (K4, the rule of decode_vm2.py `_block_loop.parse_at`).  Lengths
+// outside the row (comp_len not in [0, 73728], out_len not in [0, 65536])
+// report not ok.  The rules (op_rules) are written once, over the cursors'
+// width: 64-bit in this header's walk (K3, K4, T2), 32-bit in the
+// pipelined walk of decode_pipe.cuh (K2), where every value fits: ip <=
+// 73728 + 64 (a window may look past comp_len), opc + ctx_len <= 131072,
+// and ip + hdr + len < 2^31 because a 4-byte literal length is at most
+// 2^30.  parse_op reads no byte past the 73728-byte row.
 
 #pragma once
 
@@ -37,29 +41,27 @@ namespace snappy_block {
 constexpr int64_t kBlockSize = 65536;  // output bytes per block
 constexpr int64_t kPadOut = 73728;     // compressed row bytes per block
 
-struct Op {
-  int64_t hdr;   // header bytes (tag + length/offset bytes)
-  int64_t len;   // output bytes
-  int64_t dist;  // copy distance; 0 for a literal
+// An op: Int is the width of the cursors, int64_t in this header's walk
+// (K3, K4, T2) and int32_t in the pipelined walk of decode_pipe.cuh (K2).
+template <class Int>
+struct OpT {
+  Int hdr;   // header bytes (tag + length/offset bytes)
+  Int len;   // output bytes
+  Int dist;  // copy distance; 0 for a literal (and for a bad copy)
   bool bad;
 };
+using Op = OpT<int64_t>;
 
-SNAPPY_HD uint32_t byte_at(const uint8_t* row, int64_t i) {
-  return i < kPadOut ? row[i] : 0u;
-}
-
-// Decode the op at comp byte ip with the output cursor at opc.
-SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_len,
-                      int64_t out_len, int64_t ctx_len) {
-  const uint32_t tag = byte_at(row, ip);
-  const uint32_t b1 = byte_at(row, ip + 1);
-  const uint32_t b2 = byte_at(row, ip + 2);
-  const uint32_t b3 = byte_at(row, ip + 3);
-  const uint32_t b4 = byte_at(row, ip + 4);
+// The rules, written once: the op whose header bytes are tag, b1..b4 (those
+// past its header are not looked at), at comp byte ip with the output
+// cursor at opc.
+template <class Int>
+SNAPPY_HD OpT<Int> op_rules(uint32_t tag, uint32_t b1, uint32_t b2, uint32_t b3, uint32_t b4, Int ip, Int opc,
+                            Int comp_len, Int out_len, Int ctx_len) {
   const uint32_t kind = tag & 3u;
   const uint32_t code = tag >> 2;
 
-  Op op;
+  OpT<Int> op;
   bool bad;
   if (kind == 0) {  // literal; codes 60..63 carry 1..4 length bytes
     const uint32_t extra = code >= 60 ? code - 59 : 0;
@@ -69,7 +71,7 @@ SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_
     if (extra == 3) m = b1 | (b2 << 8) | (b3 << 16);
     if (extra == 4) m = b1 | (b2 << 8) | (b3 << 16) | ((b4 & 0x3Fu) << 24);
     op.hdr = 1 + extra;
-    op.len = static_cast<int64_t>(m) + 1;
+    op.len = static_cast<Int>(m) + 1;
     op.dist = 0;
     bad = ip + op.hdr + op.len > comp_len || (extra == 4 && (b4 & 0xC0u) != 0);
   } else {
@@ -92,7 +94,18 @@ SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_
   return op;
 }
 
-// Run one block's ops in order.  The mover places the bytes:
+SNAPPY_HD uint32_t byte_at(const uint8_t* row, int64_t i) {
+  return i < kPadOut ? row[i] : 0u;
+}
+
+// Decode the op at comp byte ip with the output cursor at opc.
+SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_len,
+                      int64_t out_len, int64_t ctx_len) {
+  return op_rules<int64_t>(byte_at(row, ip), byte_at(row, ip + 1), byte_at(row, ip + 2), byte_at(row, ip + 3),
+                           byte_at(row, ip + 4), ip, opc, comp_len, out_len, ctx_len);
+}
+
+// Run one block's ops in order, one op at a time.  The mover places the bytes:
 //   mv.literal(opc, src, len): out[opc + j] = row[src + j]
 //   mv.copy(opc, dist, len):   out[opc + j] = out[opc + j - dist], byte-forward
 // (a copy may reach ctx_len bytes before out[0]).  Returns the ok flag.
@@ -118,7 +131,7 @@ SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_le
 }
 
 #ifdef __CUDACC__
-// Moves one op's bytes with the 32 lanes of a warp: K2's mover
+// Moves one op's bytes with the 32 lanes of a warp: K3's mover
 // (decode_block.cu), and the `full` variant of the anatomy probe T2
 // (dec_anatomy.cu).  The methods are __host__ __device__ only so that the
 // shared decode loop instantiates; the host side is never called.

@@ -1,9 +1,9 @@
 """Movement-only tape decoder — K5 and K6, the counterparts of
 snappytpu.kernels.decode_tape.
 
-The host tape builder (snappytpu.cpu.build_tapes, native C, reused as it
-is) parses and validates each block and writes the byte movements the
-decoder would make as records; the device only executes them.  The records
+The host tape builder (cpu.build_tapes, the port's copy of the JAX
+package's native runtime) parses and validates each block and writes the
+byte movements the decoder would make as records; the device only executes them.  The records
 address the JAX package's unified image (COMP_OFF, OUT_BASE below), and
 csrc/decode_tape.cuh states their format.
 
@@ -31,7 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
-from snappytpu.format import constants as C
+from ..format import constants as C
 
 from .decode_vm import decode_blocks_vm
 
@@ -49,7 +49,7 @@ k_launches = 0  # kernel launches by _run_tape_k (the CUDA route only)
 
 def build_tapes(comp_np: np.ndarray, comp_lens: np.ndarray, out_lens: np.ndarray):
     """Host tape build for a padded batch -> (tapes, nrecs) numpy arrays."""
-    from snappytpu import cpu
+    from .. import cpu
 
     if not cpu.available:
         raise RuntimeError("native runtime unavailable; use decode_blocks_vm")

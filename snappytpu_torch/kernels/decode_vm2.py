@@ -1,9 +1,10 @@
 """Decode VM v2 — K3 and K4, the counterparts of snappytpu.kernels.decode_vm2.
 
 `decode_blocks_vm2` (K3) is the JAX package's unpipelined block decoder,
-kept there for A/B against K2.  It computes the same function as K2, so on
-Hopper it is a second entry point onto K2's kernel (csrc/decode_block.cu)
-with its own launch count; its plain version is K2's.
+kept there for A/B against K2.  It computes the same function as K2; on
+Hopper it is K2's walk without the pipeline (one warp, one op at a time,
+csrc/decode_block.cu `decode_blocks_vm2_kernel`), with its own launch
+count; its plain version is K2's.
 
 `decode_stream_vm` (K4) decodes N op chunks of a stream whose ops straddle
 the 64 KiB output grid, in order, with a sliding 64 KiB context:
@@ -41,7 +42,7 @@ def decode_blocks_vm2(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: 
     comp_u8, comp_lens, out_lens = checked(comp_u8, comp_lens, out_lens)
     if comp_u8.device.type == "cpu":
         return decode_blocks_ref(comp_u8, comp_lens, out_lens)
-    out = _launch(comp_u8, comp_lens, out_lens, "decode_blocks_vm2")
+    out = _launch(comp_u8, comp_lens, out_lens, "decode_blocks_vm2", "snappy_decode_blocks_vm2")
     if comp_u8.shape[0]:
         launches += 1
     return out

@@ -3,8 +3,11 @@
 `decode_blocks_vm4` decodes a batch of independent Snappy blocks:
 (B, 73728) uint8 compressed rows + (B,) int32 comp_lens + (B,) int32 out_lens
 -> ((B, 65536) uint8 rows, (B,) bool ok).  On a CUDA tensor the hand-written
-kernel in csrc/decode_block.cu runs; on a CPU tensor the plain version below
-does, and nothing else chooses between them.
+kernel in csrc/decode_block.cu runs (the parse -> move pipeline of
+csrc/decode_pipe.cuh: a sizer, a judge and a mover warp handing windows and
+records over in batches, the Hopper form of the JAX kernel's software
+pipeline); on a CPU tensor the plain version below does, and nothing else
+chooses between them.  A failed build or launch raises.
 
 Contract (the JAX decoder's): a block is ok iff no op is malformed and its
 ops end exactly at comp_len and out_len; zero-length pad blocks are ok; the
@@ -21,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from snappytpu.format import constants as C
+from ..format import constants as C
 
 BS = C.MAX_BLOCK_SIZE
 PAD_OUT = C.MAX_COMPRESSED_BLOCK_SIZE
@@ -96,9 +99,11 @@ def decode_blocks_ref(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: 
     return torch.from_numpy(out).to(comp_u8.device), torch.from_numpy(ok).to(comp_u8.device)
 
 
-def _launch(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor, what: str):
-    """Run the CUDA block decoder (K2's kernel, also K3's) on a checked
-    batch; an empty batch launches nothing.  The caller counts launches."""
+def _launch(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor, what: str,
+            entry: str = "snappy_decode_blocks"):
+    """Run a CUDA block decoder of csrc/decode_block.cu (`entry`: K2's
+    pipelined kernel, or K3's) on a checked batch; an empty batch launches
+    nothing.  The caller counts launches."""
     from .._build import check, library
 
     B = comp_u8.shape[0]
@@ -109,7 +114,7 @@ def _launch(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tens
     if comp_u8.data_ptr() % 16:  # the kernel stages rows with 16-byte loads
         comp_u8 = comp_u8.clone()
     with torch.cuda.device(comp_u8.device):
-        rc = library().snappy_decode_blocks(
+        rc = getattr(library(), entry)(
             comp_u8.data_ptr(), comp_lens.data_ptr(), out_lens.data_ptr(),
             out.data_ptr(), ok.data_ptr(), B,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),

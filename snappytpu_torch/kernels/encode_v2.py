@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from snappytpu.format import constants as C
+from ..format import constants as C
 
 from .concat import concat_rows
 

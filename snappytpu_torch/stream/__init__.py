@@ -1,2 +1,2 @@
-"""Stream layers of the port: the bounded-memory file codec (filecodec.py).
-Framing itself is snappytpu.stream.framing, reused by import."""
+"""Stream layers of the port: host framing (framing.py, the port's copy of
+snappytpu.stream.framing) and the bounded-memory file codec (filecodec.py)."""

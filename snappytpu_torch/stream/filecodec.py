@@ -20,13 +20,12 @@ import os
 
 import numpy as np
 
-from snappytpu.format import constants as C
-from snappytpu.format.varint import encode_varint
-from snappytpu.model.decode import CorruptError
-from snappytpu.stream import framing
-
 from .. import api
+from ..format import constants as C
+from ..format.varint import encode_varint
 from ..kernels.decode_tape import decode_blocks_tape
+from ..model.decode import CorruptError
+from . import framing
 
 # 32 MiB of input blocks per staged window: 4 device batches of 128 blocks
 _DEF_WINDOW_BLOCKS = 512
@@ -56,7 +55,7 @@ def decompress_file(src: str | os.PathLike, dst: str | os.PathLike,
                     window_blocks: int = _DEF_WINDOW_BLOCKS, *, device) -> int:
     """Stream-decompress a raw Snappy file on `device`; returns the output
     size.  CorruptError (or NativeError) if the stream is malformed."""
-    from snappytpu import cpu
+    from .. import cpu
 
     m = np.memmap(src, dtype=np.uint8, mode="r")
     out_len, start = framing.read_preamble(np.asarray(m[:32]).copy())

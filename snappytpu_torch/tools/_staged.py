@@ -22,9 +22,9 @@ import time
 import numpy as np
 import torch
 
-from snappytpu.bench import corpus
-from snappytpu.format import constants as C
-from snappytpu.stream import framing
+from ..bench import corpus
+from ..format import constants as C
+from ..stream import framing
 
 from ..kernels import decode_tape
 from ..kernels import encode_v2 as E

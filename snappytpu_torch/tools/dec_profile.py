@@ -22,7 +22,7 @@ import argparse
 import sys
 import time
 
-from snappytpu.format import constants as C
+from ..format import constants as C
 
 from ..kernels import decode_tape, decode_vm, decode_vm2, decode_vm4
 from ._staged import MAKERS, best_per_batch, device_of, stage_sets

@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from snappytpu.format import constants as C
+from ..format import constants as C
 
 from ..kernels.decode_tape import BS, OUT_BASE, PAD_OUT, _checked, image, records, run_tape_ref
 from ._staged import best_per_batch, device_of, stage_sets

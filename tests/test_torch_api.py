@@ -11,9 +11,9 @@ import pytest
 from snappytpu import api as jax_api
 from snappytpu.bench import corpus
 from snappytpu.format.varint import encode_varint
-from snappytpu.model.decode import CorruptError
 from snappytpu.stream import framing
-from snappytpu_torch import api
+from snappytpu_torch import api, cpu
+from snappytpu_torch.model.decode import CorruptError  # the port's own: api raises it
 
 DATA = {
     "mixed100k": corpus.mixed(100_000, seed=3),
@@ -103,13 +103,23 @@ def test_capacity_poison_raises(monkeypatch):
 
 
 def test_routes_without_the_native_runtime(monkeypatch):
-    """Without snappytpu.cpu the block route is K2 and the host fallback the
-    model decoder, as in the JAX package; the windowed route is unchanged."""
-    from snappytpu import cpu
+    """Without the port's native runtime (snappytpu_torch.cpu) the block
+    route is K2 and the host fallback the model decoder, as in the JAX
+    package; the windowed route is unchanged."""
 
+    def refused(*a, **k):
+        raise AssertionError("the native runtime was used while unavailable")
+
+    blocks = []
+    real = api.decode_blocks
     monkeypatch.setattr(cpu, "available", False)
+    monkeypatch.setattr(api, "decode_blocks_tape", refused)
+    monkeypatch.setattr(api, "decode_blocks", lambda *a: blocks.append(a[0].shape[0]) or real(*a))
+    for name in ("compact", "decompress", "scan_ops", "split_rows"):
+        monkeypatch.setattr(cpu, name, refused)
     stream = _compressed("mixed100k", "fast")
     assert api.decompress(stream, device="cpu") == DATA["mixed100k"]
+    assert blocks == [2]
     data = corpus.mixed(100_000, seed=4)
     tail = np.frombuffer(api.compress(data[3:], "fast", device="cpu"), np.uint8)
     _, start = framing.read_preamble(tail)

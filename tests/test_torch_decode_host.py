@@ -1,13 +1,21 @@
 """The kernels' shared headers, checked from their own source without a GPU.
 
-snappytpu_torch/csrc/decode_block.cuh holds the op parser, its validation
-and the decode loop (K2, K3, K4); decode_tape.cuh holds the tape record
-format and how a warp's lanes move a record (K5, K6).  Both are host+device
-code.  Here g++ builds them into a tiny host harness:
-  * K2: a mover with the kernel's parallel copy indexing
+snappytpu_torch/csrc/decode_block.cuh holds the op rules, the op parser and
+the op-by-op decode loop (K3, K4); decode_pipe.cuh holds K2's parse -> move
+pipeline; decode_tape.cuh holds the tape record format and how a warp's
+lanes move a record (K5, K6).  All are host+device code.  Here g++ builds
+them into a tiny host harness:
+  * K3: a mover with the kernel's parallel copy indexing
     (out[opc + j] = out[opc - dist + j % dist]), held against the plain
     version and the JAX decoder on the rows of test_torch_decode.py, plus a
     seeded mutation fuzz against the plain version;
+  * K2: decode_pipe.cuh's sizer, judge and mover under a host warp policy
+    that runs the 32 lanes one after another (in reverse, so that an
+    order-dependent move would show), the sizer to the row's end first, staged as the kernel stages a row
+    (comp_len bytes rounded up to 16, then 64 zero bytes, garbage after;
+    the image zeroed from out_len on, garbage before), held against the
+    plain version on the same rows, the mutation fuzz, hand cases and rows
+    with garbage past comp_len;
   * K4: the parser with ctx_len > 0 over the kernel's 128 KiB ring, held
     against the plain windowed decoder;
   * K5: the tape walk with the kernel's lane indexing (32 lanes emulated
@@ -23,18 +31,19 @@ import numpy as np
 import pytest
 import torch
 
-from snappytpu import cpu
 from snappytpu.format import constants as C
 from snappytpu.stream import framing
-from snappytpu_torch import _build
+from snappytpu_torch import _build, cpu
 from snappytpu_torch.kernels import decode_tape, decode_vm2, decode_vm4
 from test_fuzz_decode import _unaligned_stream
-from test_stream_decode import _build_straddling_stream, _copy4, _lit
+from test_stream_decode import _build_straddling_stream, _copy2, _copy4, _lit
 from test_torch_decode import FAMILIES, _rows, decoded, golden_streams, own_streams
 
 HARNESS = r"""
 #include <string.h>
+#include <deque>
 #include "decode_block.cuh"
+#include "decode_pipe.cuh"
 #include "decode_tape.cuh"
 
 namespace {
@@ -53,6 +62,127 @@ extern "C" int decode_block_host(const uint8_t* row, int64_t comp_len, int64_t o
   memset(out, 0, snappy_block::kBlockSize);
   HostMover mv{row, out};
   return snappy_block::decode_block(row, comp_len, out_len, 0, mv) ? 1 : 0;
+}
+
+namespace {
+using snappy_pipe::Rec;
+
+struct PipeWarp {  // decode_pipe.cuh's warp policy, the 32 lanes one by one
+  template <class T>
+  struct Var {
+    T v[32];
+    T& operator[](int l) { return v[l]; }
+    const T& operator[](int l) const { return v[l]; }
+  };
+  int64_t* groups;
+  template <class F>
+  void each(F f) {
+    for (int l = 31; l >= 0; --l) f(l);
+  }
+  int32_t shfl(const Var<int32_t>& x, int src) const { return x[src]; }
+  Var<int32_t> gather(const Var<int32_t>& x, const Var<int32_t>& i) const {
+    Var<int32_t> y;
+    for (int l = 0; l < 32; ++l) y[l] = x[i[l]];
+    return y;
+  }
+  int32_t reduce_or(const Var<int32_t>& x) const {
+    int32_t m = 0;
+    for (int l = 0; l < 32; ++l) m |= x[l];
+    return m;
+  }
+  uint32_t ballot(const Var<bool>& p) const {
+    uint32_t m = 0;
+    for (int l = 0; l < 32; ++l) m |= static_cast<uint32_t>(p[l]) << l;
+    return m;
+  }
+  void excl_scan(Var<int32_t>& x) const {
+    int32_t s = 0;
+    for (int l = 0; l < 32; ++l) {
+      const int32_t v = x[l];
+      x[l] = s;
+      s += v;
+    }
+  }
+  void sync() const { ++*groups; }
+};
+
+struct PipeWindows {  // the sizer's windows, in order, for the judge
+  struct Win {
+    int32_t ip;
+    uint32_t starts;
+    snappy_pipe::Head head[32];
+    int32_t len[32];
+  };
+  std::deque<Win> q;
+  bool stopped(PipeWarp&) const { return false; }
+  void push(PipeWarp&, int32_t ip, const snappy_pipe::Window<PipeWarp>& win, bool) {
+    Win x{ip, win.starts, {}, {}};
+    for (int l = 0; l < 32; ++l) {
+      x.head[l] = win.head[l];
+      x.len[l] = win.op[l].len;
+    }
+    q.push_back(x);
+  }
+  void take(PipeWarp&, int32_t& ip, uint32_t& starts, PipeWarp::Var<snappy_pipe::Head>& head,
+            PipeWarp::Var<int32_t>& len) {
+    const Win& x = q.front();
+    ip = x.ip;
+    starts = x.starts;
+    for (int l = 0; l < 32; ++l) {
+      head[l] = x.head[l];
+      len[l] = x.len[l];
+    }
+  }
+  void release(PipeWarp&) { q.pop_front(); }
+  void finish(PipeWarp&) {}
+};
+
+struct PipeSink {  // hands each batch straight to the mover
+  PipeWarp& w;
+  const uint8_t* comp;
+  uint8_t* out;
+  int64_t* batches;
+  Rec recs[snappy_pipe::kBatch];
+  int count = 0;
+  Rec* room(int n) {
+    if (count + n > snappy_pipe::kBatch) flush();
+    return recs + count;
+  }
+  void commit(int n) { count += n; }
+  void finish() { flush(); }
+  void flush() {
+    PipeWarp::Var<Rec> rec;
+    for (int l = 0; l < 32; ++l) rec[l] = l < count ? recs[l] : Rec{0, 0, 0, 0};
+    snappy_pipe::move_batch(w, rec, count, comp, out);
+    ++*batches;
+    count = 0;
+  }
+};
+}  // namespace
+
+// K2's kernel body on the host: stats = {batches, groups}.
+extern "C" int decode_pipe_host(const uint8_t* row, int32_t comp_len, int32_t out_len, uint8_t* out, int64_t* stats) {
+  static uint8_t comp_s[snappy_block::kPadOut + snappy_pipe::kSlack];
+  static uint8_t img[snappy_block::kBlockSize];
+  memset(comp_s, 0xA5, sizeof comp_s);
+  memset(img, 0x5A, sizeof img);
+  const bool valid = 0 <= comp_len && comp_len <= snappy_block::kPadOut && 0 <= out_len &&
+                     out_len <= snappy_block::kBlockSize;
+  const int nrow = valid ? (comp_len + 15) / 16 : 0;
+  memcpy(comp_s, row, 16 * nrow);
+  memset(comp_s + 16 * nrow, 0, snappy_pipe::kSlack);
+  const int zero_from = valid ? 16 * (out_len / 16) : 0;
+  memset(img + zero_from, 0, snappy_block::kBlockSize - zero_from);
+  bool good = false;
+  if (valid) {
+    PipeWarp w{&stats[1]};
+    PipeWindows windows;
+    snappy_pipe::size_block(w, comp_s, comp_len, windows);  // the sizer runs ahead, here to the end
+    PipeSink sink{w, comp_s, img, &stats[0]};
+    good = snappy_pipe::judge_block(w, comp_len, out_len, windows, sink);
+  }
+  memcpy(out, img, snappy_block::kBlockSize);
+  return good ? 1 : 0;
 }
 
 namespace {
@@ -128,6 +258,8 @@ def lib(tmp_path_factory):
     P, I64 = ctypes.c_void_p, ctypes.c_int64
     lib.decode_block_host.argtypes = [P, I64, I64, P]
     lib.decode_block_host.restype = ctypes.c_int
+    lib.decode_pipe_host.argtypes = [P, ctypes.c_int32, ctypes.c_int32, P, P]
+    lib.decode_pipe_host.restype = ctypes.c_int
     lib.decode_stream_host.argtypes = [P, P, P, P, P, I64, P, P]
     lib.decode_stream_host.restype = None
     lib.run_tape_host.argtypes = [P, I64, I64, P, P]
@@ -178,6 +310,221 @@ def test_host_build_equals_plain_on_mutation_fuzz(harness, seed):
     np.testing.assert_array_equal(ok, pok.numpy())
     np.testing.assert_array_equal(out[ok], pout.numpy()[ok])
     assert 0 < ok.sum() < ok.size
+
+
+@pytest.fixture(scope="module")
+def pipe(lib):
+    """K2's walk on the host -> (rows, ok, {batches, groups})."""
+
+    def run(rows, cl, ol):
+        rows = np.ascontiguousarray(rows)
+        out = np.empty((rows.shape[0], C.MAX_BLOCK_SIZE), np.uint8)
+        stats = np.zeros(2, np.int64)
+        ok = np.array([lib.decode_pipe_host(rows[i].ctypes.data, int(cl[i]), int(ol[i]), out[i].ctypes.data,
+                                            stats.ctypes.data) for i in range(rows.shape[0])], bool)
+        return out, ok, {"batches": int(stats[0]), "groups": int(stats[1])}
+
+    return run
+
+
+def _pipe_agrees(pipe, rows, cl, ol):
+    """Flags equal to the plain version everywhere, rows where ok."""
+    out, ok, stats = pipe(rows, cl, ol)
+    pout, pok = decode_vm4.decode_blocks_ref(torch.from_numpy(rows), torch.from_numpy(cl), torch.from_numpy(ol))
+    np.testing.assert_array_equal(ok, pok.numpy(), err_msg="ok vs plain")
+    np.testing.assert_array_equal(out[ok], pout.numpy()[ok], err_msg="rows vs plain")
+    return ok, stats
+
+
+def _garbage_tail(rows, cl, rng):
+    """The rows with random bytes past comp_len (where comp_len is in range)."""
+    rows = rows.copy()
+    for i in range(rows.shape[0]):
+        if 0 <= cl[i] < C.MAX_COMPRESSED_BLOCK_SIZE:
+            rows[i, cl[i]:] = rng.integers(0, 256, C.MAX_COMPRESSED_BLOCK_SIZE - cl[i], dtype=np.uint8)
+    return rows
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_pipe_equals_jax_and_plain(pipe, family):
+    rows, cl, ol, jout, jok = decoded(family)
+    ok, _ = _pipe_agrees(pipe, rows, cl, ol)
+    np.testing.assert_array_equal(ok, jok, err_msg="ok vs JAX")
+    out, _, _ = pipe(rows, cl, ol)
+    np.testing.assert_array_equal(out[ok], jout[ok], err_msg="rows vs JAX")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pipe_equals_plain_on_mutation_fuzz(pipe, seed):
+    """test_host_build_equals_plain_on_mutation_fuzz's mutations, half of
+    the rows with garbage past comp_len."""
+    rng = np.random.default_rng(700 + seed)
+    base = own_streams() + golden_streams()
+    streams = []
+    for _ in range(300):
+        ops, n = base[int(rng.integers(0, len(base)))]
+        arr = bytearray(ops)
+        for _ in range(int(rng.integers(1, 4))):
+            arr[int(rng.integers(0, len(arr)))] = int(rng.integers(0, 256))
+        cut = len(arr) if rng.random() < 0.8 else int(rng.integers(0, len(arr) + 1))
+        streams.append((bytes(arr[:cut]), n if rng.random() < 0.9 else int(rng.integers(0, C.MAX_BLOCK_SIZE + 1))))
+    rows, cl, ol = _rows(streams)
+    rows[::2] = _garbage_tail(rows[::2], cl[::2], rng)
+    ok, _ = _pipe_agrees(pipe, rows, cl, ol)
+    assert 0 < ok.sum() < ok.size
+
+
+def _copy1(length: int, dist: int) -> bytes:
+    assert 4 <= length <= 11 and 1 <= dist < 2048
+    return bytes([((dist >> 8) << 5) | ((length - 4) << 2) | C.TAG_COPY1, dist & 0xFF])
+
+
+def _copy(length: int, dist: int) -> bytes:
+    return _copy1(length, dist) if 4 <= length <= 11 and dist < 2048 else _copy2(length, dist)
+
+
+def _fill(periods, n: int):
+    """A literal of max(periods) bytes, then n copies of lengths 4..64 at
+    the distances `periods` in turn: a fill whose records each read the one
+    before (at one distance the mover joins them into one record)."""
+    ops, out = bytearray(_lit(bytes(range(65, 65 + max(periods))))), max(periods)
+    for k in range(n):
+        ln = (4, 11, 64, 7, 33, 5, 60, 9)[k % 8]
+        ops += _copy(ln, periods[k % len(periods)])
+        out += ln
+    return bytes(ops), out
+
+
+def _inside_batch():
+    """Copies whose sources lie in their own batch: the records right after
+    a literal read it, a self-overlapping copy of period 5, and a copy that
+    spans a literal and two copies."""
+    ops = _lit(b"abcdefghij") + _copy(10, 10) + _copy(20, 5) + _lit(b"XYZ") + _copy(8, 23) + _copy(6, 1)
+    out = 10 + 10 + 20 + 3 + 8 + 6
+    return [(ops, out), (ops + _lit(b"q" * 40) + _copy(30, 50) + _copy(64, 41), out + 40 + 30 + 64)]
+
+
+def _far_copies():
+    """A 3000-byte literal, then 200 copies reaching back 2500-3000 bytes:
+    past their own batch, but for the first batch's, which read the
+    literal."""
+    rng = np.random.default_rng(5)
+    ops, out = bytearray(_lit(rng.integers(0, 256, 3000, dtype=np.uint8).tobytes())), 3000
+    for _ in range(200):
+        ln = int(rng.integers(4, 65))
+        ops += _copy(ln, int(rng.integers(2500, 3000)))
+        out += ln
+    return [(bytes(ops), out)]
+
+
+def _bad_mid_batch():
+    """A bad op as the 11th of 20: a copy reaching before the block, a
+    COPY4 with a nonzero 4th offset byte, a literal past comp_len (the
+    tail is cut), a zero distance."""
+    head = _lit(b"0123456789") + b"".join(_copy(5, 3 + k) for k in range(9))
+    tail = b"".join(_copy(4, 2) for _ in range(9))
+    n = 10 + 45 + 4 + 36
+    bads = [_copy2(4, 60), bytes([(3 << 2) | C.TAG_COPY4, 2, 0, 0, 1]), bytes([C.TAG_COPY1, 0])]
+    cases = [(head + b + tail, n) for b in bads]
+    cases.append((head + _lit(b"x" * 30) + tail, n - 4 + 30))  # control: valid
+    cases.append((head + _lit(b"x" * 30)[:-3], n))  # the literal runs past comp_len
+    return cases
+
+
+def _exact_ends():
+    """Streams whose ops end exactly at comp_len and out_len, comp_len around
+    multiples of the 32-byte window (a COPY2 among COPY1s makes it odd);
+    then out_len one short or long, comp_len one long or short."""
+    cases = []
+    for size in (31, 32, 33, 63, 64, 65, 95, 96):
+        k = (size - 2) // 2
+        ops = _lit(b"a") + _copy1(4, 1) * k
+        if size % 2:
+            ops = ops[:-2] + _copy2(4, 1)
+        assert len(ops) == size
+        out = 1 + 4 * k
+        cases += [(ops, out), (ops, out - 1), (ops, out + 1), (ops + b"\x00", out), (ops[:-1], out)]
+    return cases
+
+
+def _long_literals():
+    """4-byte literal lengths: near 2^30 (past the row), with b4's top bits
+    set, and a short literal written with four length bytes."""
+    tag4 = bytes([63 << 2])
+    return [
+        (tag4 + bytes([0xFF, 0xFF, 0xFF, 0x3F]) + b"z" * 40, 40),
+        (tag4 + bytes([0xFE, 0xFF, 0xFF, 0x3F]) + b"z" * 40, 40),
+        (tag4 + bytes([9, 0, 0, 0x40]) + b"0123456789", 10),
+        (tag4 + bytes([9, 0, 0, 0x80]) + b"0123456789", 10),
+        (tag4 + bytes([9, 0, 0, 0]) + b"0123456789", 10),
+        (bytes([62 << 2, 0xFF, 0xFF, 0xFF]) + b"y" * 50, 50),
+        (bytes([62 << 2, 49, 0, 0]) + b"y" * 50 + _copy(64, 50), 114),
+    ]
+
+
+def _joined_long_copies():
+    """Copies at one distance >= their joined length, joined into records of
+    128 bytes or more, which the warp moves a word per lane: destinations
+    and sources off word alignment, and a literal of 1000 bytes."""
+    rng = np.random.default_rng(9)
+    lit = rng.integers(0, 256, 1000, dtype=np.uint8).tobytes()
+    cases = []
+    for dist in (300, 301, 302, 303):
+        ops = _lit(lit[:dist]) + _copy(64, dist) * 4 + _copy(7, dist) + _lit(lit[: 131 + dist % 4]) + _copy(64, dist) * 3
+        cases.append((ops, dist + 256 + 7 + 131 + dist % 4 + 192))
+    return cases
+
+
+HAND_CASES = {
+    "fill_1": lambda: [_fill((1,), 150)],
+    "fill_2": lambda: [_fill((2,), 150)],
+    "fill_4": lambda: [_fill((4,), 150)],
+    "fill_1_2_4": lambda: [_fill((1, 2, 4), 150)],
+    "inside_batch": _inside_batch,
+    "joined_long_copies": _joined_long_copies,
+    "far_copies": _far_copies,
+    "bad_mid_batch": _bad_mid_batch,
+    "exact_ends": _exact_ends,
+    "long_literals": _long_literals,
+}
+
+
+@pytest.mark.parametrize("name", sorted(HAND_CASES))
+@pytest.mark.parametrize("tail", ["zero", "garbage"])
+def test_pipe_hand_cases(pipe, name, tail):
+    streams = HAND_CASES[name]()
+    rows, cl, ol = _rows(streams)
+    if tail == "garbage":
+        rows = _garbage_tail(rows, cl, np.random.default_rng(len(name)))
+    ok, stats = _pipe_agrees(pipe, rows, cl, ol)
+    want = {
+        "fill_1": [True], "fill_2": [True], "fill_4": [True], "fill_1_2_4": [True], "joined_long_copies": [True] * 4,
+        "inside_batch": [True, True], "far_copies": [True],
+        "bad_mid_batch": [False, False, False, True, False], "long_literals": [False, False, False, False, True,
+                                                                                False, True],
+    }
+    if name in want:
+        assert ok.tolist() == want[name]
+    if name in ("fill_1", "fill_2", "fill_4"):  # a batch's copies join into one: the literal's group, then one each
+        assert stats["batches"] >= 5 and stats["groups"] == stats["batches"] + 1
+    if name == "fill_1_2_4":  # each record reads the one before at another distance: a group each
+        assert stats["batches"] >= 5 and stats["groups"] == 151
+    if name == "far_copies":  # only the first batch's copies read it (the literal): a group per batch but one
+        assert stats["batches"] >= 6 and stats["groups"] == stats["batches"] + 1
+    if name == "inside_batch":
+        assert stats["groups"] > stats["batches"]
+    if name == "exact_ends":
+        assert ok[0::5].all() and not ok[1::5].any() and not ok[2::5].any() and not ok[3::5].any()
+        assert not ok[4::5].any()
+
+
+def test_pipe_refuses_lengths_out_of_range(pipe):
+    rows, cl, ol = _rows([(_lit(b"abc"), 3)] * 4)
+    cl = np.array([-1, C.MAX_COMPRESSED_BLOCK_SIZE + 1, 4, 4], np.int32)
+    ol = np.array([3, 3, -1, C.MAX_BLOCK_SIZE + 1], np.int32)
+    out, ok, stats = pipe(rows, cl, ol)
+    assert not ok.any() and stats["batches"] == 0
+    assert not out.any()  # the kernel zeroes the image of such a row
 
 
 @functools.cache

@@ -8,9 +8,9 @@ import pytest
 from snappytpu import api as jax_api
 from snappytpu.bench import corpus
 from snappytpu.format.varint import encode_varint
-from snappytpu.model.decode import CorruptError
 from snappytpu.stream import filecodec as jax_filecodec
 from snappytpu_torch import api
+from snappytpu_torch.model.decode import CorruptError  # the port's own: the file codec raises it
 from snappytpu_torch.stream import filecodec
 
 

@@ -1,9 +1,14 @@
-"""The PyTorch port imports and runs without JAX: its package must never
-pull in jax (the GPU host has none), only the JAX-free layers of snappytpu."""
+"""The PyTorch port stands alone: it imports and runs without JAX (the GPU
+host has none) and without the JAX package snappytpu, whose JAX-free layers
+it keeps as its own copies."""
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -12,13 +17,14 @@ import sys
 import numpy as np
 import torch
 import snappytpu_torch
-from snappytpu_torch import api, cli
+from snappytpu_torch import _build, api, cli, cpu, format, model, profiling
+from snappytpu_torch.bench import corpus, metrics
+from snappytpu_torch.format import constants, varint
+from snappytpu_torch.format.varint import encode_varint
 from snappytpu_torch.kernels import concat, decode_tape, decode_vm, decode_vm2, decode_vm4, encode_v2
-from snappytpu_torch.stream import filecodec
-from snappytpu_torch import profiling
+from snappytpu_torch.model import decode, encode
+from snappytpu_torch.stream import filecodec, framing
 from snappytpu_torch.tools import _staged, dec_anatomy, dec_profile, probe_scalar, tape_probe
-from snappytpu.bench import corpus
-from snappytpu.format.varint import encode_varint
 
 data = corpus.mixed(70_000, seed=3)
 for profile in ("fast", "dense"):
@@ -28,6 +34,10 @@ for profile in ("fast", "dense"):
 tail = np.frombuffer(api.compress(data[5:], "fast", device="cpu"), np.uint8)
 stream = encode_varint(len(data)) + bytes([4 << 2]) + data[:5] + tail[3:].tobytes()
 assert api.decompress(stream, device="cpu") == data
+# the native runtime's routes and the model codec
+assert cpu.available
+assert cpu.decompress(cpu.compress(data)) == data
+assert model.decompress(model.compress(data[:3000])) == data[:3000]
 # the profiling tools' plain routes
 p = probe_scalar.Probe("smem_chase")
 tile, _ = probe_scalar.run(p, torch.from_numpy(probe_scalar.inputs(p)), 50)
@@ -37,8 +47,8 @@ with timer.stage("probe", tile):
 assert "probe" in timer.report()
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]
 assert not bad, bad
-assert not any(m.startswith(("snappytpu.kernels", "snappytpu.api", "snappytpu.mesh", "snappytpu.profiling"))
-               for m in sys.modules)
+bad = [m for m in sys.modules if m == "snappytpu" or m.startswith("snappytpu.")]
+assert not bad, bad
 print("ok")
 """
 
@@ -63,3 +73,38 @@ def test_build_is_lazy():
     r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
+
+
+def _port_sources():
+    root = Path(ROOT)
+    return sorted((root / "snappytpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+
+
+def _imports_of_snappytpu(path: Path):
+    """Every import statement in the file, at any depth (inside functions
+    too), that names the JAX package snappytpu or a module of it."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [f"{path.name}:{node.lineno} {n}" for n in names
+                  if n == "snappytpu" or n.startswith("snappytpu.") or n == "jax" or n.startswith(("jax.", "jaxlib"))]
+    return found
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_the_jax_package(path):
+    assert _imports_of_snappytpu(path) == []
+
+
+def test_the_import_scan_sees_nested_imports(tmp_path):
+    """The scan finds the forms it must refuse, also inside a function."""
+    src = tmp_path / "probe.py"
+    src.write_text("import snappytpu\nfrom snappytpu.cpu import x\ndef f():\n    from snappytpu import cpu\n"
+                   "    import snappytpu.format.varint as v\nfrom snappytpu_torch import cpu\nfrom . import y\n")
+    assert [f.split()[1] for f in _imports_of_snappytpu(src)] == [
+        "snappytpu", "snappytpu.cpu", "snappytpu", "snappytpu.format.varint"]

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from snappytpu import cpu
 from snappytpu import profiling as jax_profiling
+from snappytpu_torch import cpu as port_cpu
 from snappytpu_torch import profiling
 from snappytpu_torch.kernels import decode_vm4
 from snappytpu_torch.tools import _staged, dec_profile
@@ -86,7 +86,7 @@ def test_dec_profile_plain_run(tmp_path, monkeypatch, capsys):
     port and cached under the temporary directory, then the second run reads
     the cache."""
     monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
-    vms = ["4", "tape"] if cpu.available else ["4"]
+    vms = ["4", "tape"] if port_cpu.available else ["4"]
     for vm in vms:
         assert dec_profile.main(["--b", "2", "--nq", "2", "--corpus", "text,nope", "--vm", vm, "--device", "cpu"]) == 0
     out = capsys.readouterr().out

@@ -18,9 +18,12 @@ from snappytpu.kernels import decode_tape as jax_tape
 from snappytpu.kernels.decode_vm import decode_blocks_vm as jax_decode_vm
 from snappytpu.kernels.encode_v2 import encode_blocks_v2 as jax_encode
 from snappytpu.model import compress as model_compress
-from snappytpu.model.decode import CorruptError, decode_ops
+from snappytpu.model.decode import CorruptError as JaxCorruptError
+from snappytpu.model.decode import decode_ops
 from snappytpu.stream import framing
+from snappytpu_torch import cpu as port_cpu
 from snappytpu_torch.kernels import decode_tape, decode_vm4
+from snappytpu_torch.model import decode as port_model
 
 torch.set_num_threads(1)  # the CPU tests run as several worker processes side by side
 
@@ -31,8 +34,8 @@ CASES["mixed100k"] = corpus.mixed(100_000, seed=7)
 
 @pytest.fixture(autouse=True)
 def _native():
-    if not cpu.available:
-        pytest.skip("the tape builder needs the native runtime")
+    if not (cpu.available and port_cpu.available):
+        pytest.skip("the tape builders need the native runtimes")
 
 
 def _encode(data: bytes, dense: bool = True):
@@ -210,11 +213,19 @@ def _tape_result(ops: np.ndarray, out_len: int):
     return ("ok", out[0, :out_len].tobytes()) if ok[0] else ("reject", None)
 
 
-def _model_result(ops: np.ndarray, out_len: int):
+def _verdict(decode, error, ops: np.ndarray, out_len: int):
     try:
-        return ("ok", decode_ops(ops, out_len).tobytes())
-    except (CorruptError, ValueError):
+        return ("ok", decode(ops, out_len).tobytes())
+    except error:
         return ("reject", None)
+
+
+def _model_result(ops: np.ndarray, out_len: int):
+    """The JAX package's model decoder (the reference), which the port's
+    copy must match verdict for verdict."""
+    want = _verdict(decode_ops, JaxCorruptError, ops, out_len)
+    assert _verdict(port_model.decode_ops, port_model.CorruptError, ops, out_len) == want
+    return want
 
 
 @pytest.mark.parametrize("seed", range(8))

@@ -26,6 +26,7 @@ from snappytpu.bench import corpus
 from snappytpu.format import constants as C
 from snappytpu.kernels import decode_tape as jax_tape
 from snappytpu.kernels.encode_v2 import encode_blocks_v2 as jax_encode
+from snappytpu_torch import cpu as port_cpu
 from snappytpu_torch.kernels import decode_tape
 from snappytpu_torch.tools import tape_probe as port
 
@@ -37,8 +38,8 @@ BS = C.MAX_BLOCK_SIZE
 
 @pytest.fixture(autouse=True)
 def _native():
-    if not cpu.available:
-        pytest.skip("the tape builder needs the native runtime")
+    if not (cpu.available and port_cpu.available):
+        pytest.skip("the tape builders need the native runtimes")
 
 
 @functools.cache

@@ -16,10 +16,13 @@ from snappytpu.format import constants as C
 from snappytpu.format.varint import encode_varint
 from snappytpu.kernels.decode_vm2 import decode_stream_vm as jax_stream
 from snappytpu.model import compress as model_compress
-from snappytpu.model.decode import CorruptError, decode_ops
+from snappytpu.model.decode import CorruptError as JaxCorruptError
+from snappytpu.model.decode import decode_ops
 from snappytpu.stream import framing
 from snappytpu_torch import api
 from snappytpu_torch.kernels import decode_vm2
+from snappytpu_torch.model import decode as port_model
+from snappytpu_torch.stream import framing as port_framing
 from test_fuzz_decode import _unaligned_stream
 from test_stream_decode import _build_straddling_stream, _copy2, _copy4, _lit
 
@@ -147,21 +150,30 @@ def test_far_reach_copy_falls_back_to_the_host_decoder(monkeypatch):
 
 
 def _windowed_agree(ops: np.ndarray, out_len: int):
-    """The windowed pipeline on both packages -> the port's verdict."""
+    """The windowed pipeline on both packages -> the port's verdict (the
+    split by the port's framing, which raises the port's CorruptError)."""
     try:
-        chunks, out_lens, ctx_lens = framing.split_ops_windowed(ops, out_len)
-    except (CorruptError, ValueError):
+        chunks, out_lens, ctx_lens = port_framing.split_ops_windowed(ops, out_len)
+    except port_model.CorruptError:
         return ("reject", None)
     padded, comp_lens = framing.pad_chunks(chunks)
     out, ok = _assert_agree(padded, comp_lens, out_lens, ctx_lens, np.zeros(BS, np.uint8))
     return ("ok", _joined(out, out_lens)) if ok.all() else ("reject", None)
 
 
-def _model(ops: np.ndarray, out_len: int):
+def _verdict(decode, error, ops: np.ndarray, out_len: int):
     try:
-        return ("ok", decode_ops(ops, out_len).tobytes())
-    except (CorruptError, ValueError):
+        return ("ok", decode(ops, out_len).tobytes())
+    except error:
         return ("reject", None)
+
+
+def _model(ops: np.ndarray, out_len: int):
+    """The JAX package's model decoder (the reference), which the port's
+    copy must match verdict for verdict."""
+    want = _verdict(decode_ops, JaxCorruptError, ops, out_len)
+    assert _verdict(port_model.decode_ops, port_model.CorruptError, ops, out_len) == want
+    return want
 
 
 @pytest.mark.parametrize("seed", range(12))
