@@ -19,15 +19,22 @@ set to 0 just before it and read just after:
         the A/B twin of phase 5's decode (the fast batches through K3); then
         K2 and K3 timed in turns (K2, K3, K3, K2) on phase 5's batches of
         both profiles
-  8     K5 and K6 against their plain versions on a 128-block host batch
-        (own, native-compressor, mutated, tape-overflow and pad blocks); the
-        tape route with its K2 fallback against K2
-  9     K4 against its plain version on two calls of 64 chunks, the second
-        seeded (ctx0) with the first call's last 64 KiB of output
+  8     K5 (the tape decoder on K2's grouped mover) and K6 (the record-by-
+        record walk) against their plain versions on a 128-block host batch
+        (own, native-compressor, mutated, tape-overflow and pad blocks) and
+        on 128 tapes of random records whose batches are not forward; the
+        tape route with its K2 fallback against K2; K5 and K6 timed in turns
+        (K5, K6, K6, K5) on the check batch
+  9     K4 (K4a, the parallel parse, then K4b, the serial mover) against its
+        plain version on three calls of 64 chunks: the first, the second
+        seeded (ctx0) with the first call's last 64 KiB of output, and the
+        first with mutated chunks (flags and every row); K4a, K4b and the
+        whole call timed
   10    the host-resident path: the 32 MB corpus through compress_file and
         decompress_file (the tape route, K5) on the card, the CLI once each
-        way, both host routes (tape, K2) timed part by part, and K6's path,
-        the A/B twin of the tape route
+        way, both host routes (tape, K2) timed part by part, K5 and K6 timed
+        in turns on the stream's host rows, and K6's path, the A/B twin of
+        the tape route
   11    the windowed path: an unaligned 8 MB stream through api.decompress
         (two or more K4 calls of 64 chunks, and no chunk refused to the
         host decoder)
@@ -194,6 +201,37 @@ def tape_check_batch(rng, base, base_cl, base_ol):
     valid = np.array([True] * good.shape[0] + [False] * len(src))
     return (np.concatenate([good, mutated]), np.array(cls + mcl, np.int32),
             np.array(ols + [ols[j] for j in src], np.int32), valid)
+
+
+def random_tapes(rng, B: int, S: int):
+    """B tapes of S random records (the host tests' fuzz): dsts anywhere,
+    sources after their dsts, overlapping copies and records that leave the
+    image among them, so that K5's batches are not forward; nrecs in
+    [-10, S + 2]."""
+    from snappytpu_torch.kernels import decode_tape
+
+    img = decode_tape.IMAGE_BYTES
+    src = rng.integers(0, 1 << 18, (B, S))
+    src = np.where(rng.random((B, S)) < 0.9, src % img, src)
+    dst = np.where(rng.random((B, S)) < 0.95, rng.integers(0, img, (B, S)), rng.integers(-600, img + 600, (B, S)))
+    ln = np.where(rng.random((B, S)) < 0.95, rng.integers(0, decode_tape.PIECE_MAX + 1, (B, S)),
+                  rng.integers(0, 4096, (B, S)))
+    pk2 = rng.integers(0, 4, (B, S))
+    tapes = np.stack([(src | pk2 << 18 | ln << 20).astype(np.uint32).view(np.int32), dst.astype(np.int32)], -1)
+    return tapes.reshape(B, 2 * S), rng.integers(-10, S + 3, B).astype(np.int32)
+
+
+def tape_turns(batches, reps: int) -> dict:
+    """K5 and K6 (K=4) timed in turns K5, K6, K6, K5 over the staged tape
+    batches -> {"K5": [ms, ms], "K6": [ms, ms]}, ms per batch."""
+    from snappytpu_torch.kernels import decode_tape
+
+    fns = {"K5": decode_tape._run_tape, "K6": lambda *a: decode_tape._run_tape_k(*a, K=4)}
+    turns = {"K5": [], "K6": []}
+    for who in ("K5", "K6", "K6", "K5"):
+        fn = fns[who]
+        turns[who].append(event_ms(lambda: [fn(*b) for b in batches], reps) / len(batches))
+    return turns
 
 
 def host_routes(stream: bytes, raw: bytes, dev) -> dict:
@@ -428,7 +466,9 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "smem" in line:
             log(f"[2 build] {line.strip()}")
     log("[2 build] K2 is decode_blocks_kernel (parse -> move pipeline), K3 decode_blocks_vm2_kernel (op by op), "
-        "both in decode_block.cu")
+        "both in decode_block.cu; K4 is stream_parse_kernel (K4a) then stream_move_kernel (K4b), in "
+        "decode_stream.cu; K5 is run_tape_kernel (producer -> grouped mover), K6 run_tape_k_kernel (record by "
+        "record), both in decode_tape.cu")
 
     rng = np.random.default_rng(7)
     kernels = {}
@@ -665,9 +705,8 @@ def main() -> int:
         raise AssertionError("the tape route differs from K2 on the check batch")
     if not all(okt.cpu().numpy()[tape_valid]):
         raise AssertionError("the tape route rejected a valid block")
-    k5_ms = event_ms(lambda: decode_tape._run_tape(tp, nr, rw), 10)
     k5_plain = host_ms(lambda: decode_tape.run_tape_ref(tp, nr, rw), 1)
-    k6, k6_err = {}, 0
+    k6_err = 0
     for K in (2, 4):
         o6, k6ok = decode_tape._run_tape_k(tp, nr, rw, K=K)
         if not torch.equal(k6ok, ok5p):
@@ -675,18 +714,35 @@ def main() -> int:
         k6_err = max(k6_err, int((o6.int() - out5p.int()).abs().max()))
         if k6_err != 0 or not torch.equal(o6, out5):
             raise AssertionError(f"K6 (K={K}) rows differ from plain or K5 (max abs err {k6_err})")
-        k6[K] = event_ms(lambda: decode_tape._run_tape_k(tp, nr, rw, K=K), 10)
+    # random records whose batches are not forward: K5 moves them one by one
+    rt, rn = random_tapes(rng, BATCH, 64)
+    r_args = tuple(torch.from_numpy(a).to(dev) for a in (rt, rn, rng.integers(0, 256, (BATCH, PAD_OUT), np.uint8)))
+    r_out, r_ok = decode_tape.run_tape_ref(*r_args)
+    for who, (o, k) in (("K5", decode_tape._run_tape(*r_args)), ("K6", decode_tape._run_tape_k(*r_args, K=4))):
+        err = int((o.int() - r_out.int()).abs().max())
+        if not torch.equal(k, r_ok) or err != 0:
+            raise AssertionError(f"{who} differs from plain on random records (max abs err {err})")
+        if who == "K5":
+            k5_err = max(k5_err, err)
+        else:
+            k6_err = max(k6_err, err)
+    nrok = int(r_ok.sum())
+    if not 0 < nrok < BATCH:
+        raise AssertionError(f"the random tapes gave {nrok} ok blocks of {BATCH}")
+    turns8 = tape_turns([(tp, nr, rw)], 10)
+    k5_ms, k6_ms = (sum(v) / len(v) for v in (turns8["K5"], turns8["K6"]))
     # K5's bytes: the records (8 bytes each), the counts, the compressed
     # bytes the literal records read (each row up to comp_len), rows and flags
     k5_bytes = 8 * int(np.maximum(nrecs_np, 0).sum()) + 4 * len(nrecs_np) + int(np.asarray(tape_cl).sum()) \
         + tape_rows.shape[0] * (BS + 1)
     kernels["decode_tape"] = dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes))
-    kernels["decode_tape_k"] = dict(err=k6_err, ms=k6[4], plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes))
+    kernels["decode_tape_k"] = dict(err=k6_err, ms=k6_ms, plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes))
     log(f"[8 K5] {tape_rows.shape[0]} host blocks ({int(ok5.sum())} ok; nrecs max {int(nrecs_np.max())}, "
         f"{int((nrecs_np == -9).sum())} -9, "
         f"{int((nrecs_np == -10).sum())} -10): equal to plain; the route with its K2 fallback equals K2; "
-        f"kernel {k5_ms:.4f} ms, plain {k5_plain:.1f} ms")
-    log(f"[8 K6] K=2 and K=4 equal K5; kernel {k6[2]:.4f} ms (K=2), {k6[4]:.4f} ms (K=4)")
+        f"plain {k5_plain:.1f} ms; {BATCH} random tapes ({nrok} ok, not forward): K5 and K6 equal plain")
+    log(f"[8 K5/K6] K6 with K=2 and K=4 equals K5; ms per batch in turns K5 {turns8['K5'][0]:.4f}, "
+        f"K6 {turns8['K6'][0]:.4f}, K6 {turns8['K6'][1]:.4f}, K5 {turns8['K5'][1]:.4f}; K5/K6 = {k5_ms / k6_ms:.3f}")
 
     # ---- 9. K4 on one windowed call of 64 chunks ----
     # a short literal phase-shifts an encoded tail, so that its ops straddle
@@ -716,6 +772,23 @@ def main() -> int:
         raise AssertionError(f"K4 rows differ from plain or the input (max abs err {k4_err})")
     k4_ms = event_ms(lambda: decode_vm2.decode_stream_vm(*w_args), 3)
     k4_plain = host_ms(lambda: decode_vm2.decode_stream_ref(*w_args), 1)
+    # its two launches apart: K4a's parse of all 64 chunks, K4b's moves
+    recs, nrecs, _ok = decode_vm2._stream_parse(*w_args[:4])
+    k4a_ms = event_ms(lambda: decode_vm2._stream_parse(*w_args[:4]), 3)
+    k4b_ms = event_ms(lambda: decode_vm2._stream_move(*w_args[:3], w_args[4], recs, nrecs), 3)
+    # the first call with mutated chunks: flags and every row against plain
+    rng_w = np.random.default_rng(9)
+    bad = padded.copy()
+    for i in rng_w.choice(bad.shape[0], 12, replace=False):
+        for _ in range(int(rng_w.integers(1, 4))):
+            bad[i, int(rng_w.integers(0, max(int(wcl[i]), 1)))] ^= int(rng_w.integers(1, 256))
+    w_args3 = (torch.from_numpy(bad).to(dev), *w_args[1:])
+    out4c, ok4c = decode_vm2.decode_stream_vm(*w_args3)
+    out4cp, ok4cp = decode_vm2.decode_stream_ref(*w_args3)
+    torch.cuda.synchronize()
+    k4c_err = int((out4c.int() - out4cp.int()).abs().max())
+    if not torch.equal(ok4c, ok4cp) or k4c_err != 0 or bool(ok4c.all()):
+        raise AssertionError(f"K4 on mutated chunks differs from plain (max abs err {k4c_err}) or refused none")
     # the next 64 chunks, seeded with the card's last 64 KiB of output (ctx0)
     padded2, wcl2 = framing.pad_chunks(chunks[64:128])
     w_args2 = (torch.from_numpy(padded2).to(dev), torch.from_numpy(wcl2).to(dev),
@@ -732,10 +805,14 @@ def main() -> int:
     if k4_err != 0 or got2 != wdata[len(got) : len(got) + len(got2)]:
         raise AssertionError(f"K4 rows with a nonzero ctx0 differ from plain or the input (max abs err {k4_err})")
     k4_bytes = block_bytes(wcl, len(wcl)) + 4 * len(wcl) + BS  # + ctx_lens and ctx0
-    kernels["decode_stream"] = dict(err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=bound_ms(k4_bytes))
+    k4_err = max(k4_err, k4c_err)
+    kernels["decode_stream"] = dict(err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=bound_ms(k4_bytes),
+                                    parse_ms=k4a_ms, move_ms=k4b_ms)
     log(f"[9 K4] chunks 0-63 ({len(got)} bytes, zero ctx0) and 64-127 ({len(got2)} bytes, ctx0 = the card's last "
         f"64 KiB) of a {len(wdata)}-byte unaligned stream ({len(chunks)} chunks; host split {split_s * 1e3:.1f} ms): "
-        f"equal to plain and the input; kernel {k4_ms:.3f} ms per call, plain {k4_plain:.1f} ms")
+        f"equal to plain and the input; chunks 0-63 mutated ({int(ok4c.sum())} of 64 ok): flags and every row equal "
+        f"to plain; kernel {k4_ms:.3f} ms per call (K4a parse {k4a_ms:.3f} ms, K4b move {k4b_ms:.3f} ms, "
+        f"{int(nrecs.sum())} records), plain {k4_plain:.1f} ms")
 
     # ---- 10. the host-resident path: file codec, 32 MB, on the card ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -778,6 +855,19 @@ def main() -> int:
         total = sum(parts.values())
         log(f"[10 host] {name} route: {mb / total:.1f} MB/s ({total * 1e3:.1f} ms; "
             + ", ".join(f"{k} {v * 1e3:.1f} ms = {mb / v:.0f} MB/s" for k, v in parts.items()) + ")")
+    # K5 against K6 on the stream's host rows, in turns
+    hrows, hcl, hol = host_rows(fstream)
+    staged = []
+    for b0 in range(0, hrows.shape[0], BATCH):
+        r, c, o = hrows[b0 : b0 + BATCH], hcl[b0 : b0 + BATCH], hol[b0 : b0 + BATCH]
+        pad = -r.shape[0] % 4
+        r, c, o = (np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)]) for a in (r, c, o))
+        staged.append(decode_tape.stage(r, *decode_tape.build_tapes(r, c, o), device=dev))
+    turns10 = tape_turns(staged, 5)
+    t5, t6 = (sum(v) / len(v) for v in (turns10["K5"], turns10["K6"]))
+    log(f"[10 host] K5/K6 on the stream's {len(staged)} batches of host rows, ms per batch in turns K5 "
+        f"{turns10['K5'][0]:.4f}, K6 {turns10['K6'][0]:.4f}, K6 {turns10['K6'][1]:.4f}, K5 {turns10['K5'][1]:.4f}; "
+        f"K5/K6 = {t5 / t6:.3f}")
     # K6's path: the A/B twin of the tape route, on the same host rows
     zero_counts()
     run_tape_k_path(fstream, raw, dev)
@@ -833,7 +923,7 @@ def main() -> int:
          "launches": paths[info[name][2]][name],
          "launches_by_path": {path: c[name] for path, c in paths.items() if c[name]},
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": "bytes", "library_ms": None}
+         "bound_by": "bytes", "library_ms": None, **{x: k[x] for x in ("parse_ms", "move_ms") if x in k}}
         for name, k in kernels.items()
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -181,7 +181,7 @@ anatomy_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__ com
     mv.comp = comp_s;
     mv.out = out_s;
     mv.lane = static_cast<int>(threadIdx.x);
-    const bool good = snappy_block::decode_block(comp_s, comp_lens[b], out_lens[b], 0, mv);
+    const bool good = snappy_block::decode_block(comp_s, comp_lens[b], out_lens[b], mv);
     uint32_t f = mv.acc;
     for (int o = 16; o > 0; o >>= 1) f ^= __shfl_xor_sync(0xFFFFFFFFu, f, o);
     if (threadIdx.x == 0) {

@@ -16,15 +16,16 @@
 //   * the loop runs while opc < out_len and ip < comp_len
 //   * ok = no bad op, ip == comp_len and opc == out_len
 // ctx_len is how many decoded bytes lie before the block's output: 0 for an
-// independent block (K2, K3), up to 65536 for a chunk of the windowed
-// decoder (K4, the rule of decode_vm2.py `_block_loop.parse_at`).  Lengths
-// outside the row (comp_len not in [0, 73728], out_len not in [0, 65536])
-// report not ok.  The rules (op_rules) are written once, over the cursors'
-// width: 64-bit in this header's walk (K3, K4, T2), 32-bit in the
-// pipelined walk of decode_pipe.cuh (K2), where every value fits: ip <=
-// 73728 + 64 (a window may look past comp_len), opc + ctx_len <= 131072,
-// and ip + hdr + len < 2^31 because a 4-byte literal length is at most
-// 2^30.  parse_op reads no byte past the 73728-byte row.
+// independent block (K2, K3, and this header's walk), up to 65536 for a
+// chunk of the windowed decoder (K4's parse, the rule of decode_vm2.py
+// `_block_loop.parse_at`).  Lengths outside the row (comp_len not in
+// [0, 73728], out_len not in [0, 65536]) report not ok.  The rules
+// (op_rules) are written once, over the cursors' width: 64-bit in this
+// header's op-by-op walk (K3, T2), 32-bit in the pipelined walk of
+// decode_pipe.cuh (K2, K4), where every value fits: ip <= 73728 + 64 (a
+// window may look past comp_len), opc + ctx_len <= 131072, and
+// ip + hdr + len < 2^31 because a 4-byte literal length is at most 2^30.
+// parse_op reads no byte past the 73728-byte row.
 
 #pragma once
 
@@ -42,7 +43,7 @@ constexpr int64_t kBlockSize = 65536;  // output bytes per block
 constexpr int64_t kPadOut = 73728;     // compressed row bytes per block
 
 // An op: Int is the width of the cursors, int64_t in this header's walk
-// (K3, K4, T2) and int32_t in the pipelined walk of decode_pipe.cuh (K2).
+// (K3, T2) and int32_t in the pipelined walk of decode_pipe.cuh (K2, K4).
 template <class Int>
 struct OpT {
   Int hdr;   // header bytes (tag + length/offset bytes)
@@ -98,25 +99,24 @@ SNAPPY_HD uint32_t byte_at(const uint8_t* row, int64_t i) {
   return i < kPadOut ? row[i] : 0u;
 }
 
-// Decode the op at comp byte ip with the output cursor at opc.
-SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_len,
-                      int64_t out_len, int64_t ctx_len) {
+// Decode the op at comp byte ip of an independent block with the output
+// cursor at opc.
+SNAPPY_HD Op parse_op(const uint8_t* row, int64_t ip, int64_t opc, int64_t comp_len, int64_t out_len) {
   return op_rules<int64_t>(byte_at(row, ip), byte_at(row, ip + 1), byte_at(row, ip + 2), byte_at(row, ip + 3),
-                           byte_at(row, ip + 4), ip, opc, comp_len, out_len, ctx_len);
+                           byte_at(row, ip + 4), ip, opc, comp_len, out_len, int64_t{0});
 }
 
 // Run one block's ops in order, one op at a time.  The mover places the bytes:
 //   mv.literal(opc, src, len): out[opc + j] = row[src + j]
 //   mv.copy(opc, dist, len):   out[opc + j] = out[opc + j - dist], byte-forward
-// (a copy may reach ctx_len bytes before out[0]).  Returns the ok flag.
+// Returns the ok flag.
 template <class Mover>
-SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_len, int64_t ctx_len,
-                            Mover& mv) {
+SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_len, Mover& mv) {
   if (comp_len < 0 || comp_len > kPadOut || out_len < 0 || out_len > kBlockSize) return false;
   int64_t ip = 0;
   int64_t opc = 0;
   while (opc < out_len && ip < comp_len) {
-    const Op op = parse_op(row, ip, opc, comp_len, out_len, ctx_len);
+    const Op op = parse_op(row, ip, opc, comp_len, out_len);
     if (op.bad) return false;
     if (op.dist == 0) {
       mv.literal(opc, ip + op.hdr, op.len);

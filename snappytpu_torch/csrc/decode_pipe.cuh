@@ -1,4 +1,7 @@
-// K2's walk: a Snappy block decoded by a parse -> move pipeline.
+// K2's walk: a Snappy block decoded by a parse -> move pipeline.  Its
+// pieces also make K4 (decode_stream.cu: the sizer and the judge, with a
+// chunk's ctx_len, write records that move_records moves in a later launch)
+// and K5 (decode_tape.cu: a tape producer hands the mover its records).
 //
 // The Hopper form of the TPU kernel's D-deep software pipeline
 // (snappytpu/kernels/decode_vm4.py `_block_loop_pipelined`, which parses op
@@ -50,7 +53,8 @@
 // The sizer hands windows to an Out: push(w, ip, window, last) and
 // stopped(w); the judge takes them from an In: take(w, ip, starts, head,
 // len), release(w), finish(w); and hands records to a Sink: room(n) -> a
-// slot pointer with room for n more records, commit(n), finish().
+// slot pointer with room for n more records, commit(n), finish().  On the
+// device these are decode_ring.cuh's rings.
 
 #pragma once
 
@@ -136,9 +140,9 @@ struct Head {
   uint32_t w;   // the first four header bytes, the tag lowest
   uint32_t b4;  // the fifth
   SNAPPY_HD bool lit() const { return (w & 3u) == 0; }
-  SNAPPY_HD Op rules(int32_t ip, int32_t opc, int32_t comp_len, int32_t out_len) const {
+  SNAPPY_HD Op rules(int32_t ip, int32_t opc, int32_t comp_len, int32_t out_len, int32_t ctx_len) const {
     return snappy_block::op_rules<int32_t>(w & 0xFFu, (w >> 8) & 0xFFu, (w >> 16) & 0xFFu, w >> 24, b4, ip, opc,
-                                           comp_len, out_len, 0);
+                                           comp_len, out_len, ctx_len);
   }
 };
 
@@ -167,7 +171,7 @@ SNAPPY_HD void size_window(W& w, const uint8_t* row, int32_t ip, int32_t comp_le
   w.each([&](int l) {
     Head& h = win.head[l];
     header_at(row, ip + l, h.w, h.b4);
-    win.op[l] = h.rules(ip + l, 0, comp_len, kBlockSize);
+    win.op[l] = h.rules(ip + l, 0, comp_len, kBlockSize, 0);
     win.adv[l] = h.lit() ? win.op[l].hdr + win.op[l].len : win.op[l].hdr;  // >= 2
     jump[l] = win.adv[l] < kLanes - l ? l + win.adv[l] : kLanes;
   });
@@ -206,10 +210,12 @@ SNAPPY_HD void size_block(W& w, const uint8_t* row, int32_t comp_len, Out& out) 
 // The judge: takes the sized windows in order, gives each start its output
 // cursor opc by a warp scan of the lengths, finds the first op that ends the
 // loop (opc >= out_len or ip >= comp_len) or is bad, and hands the ops
-// before it to sink as records.  0 <= out_len <= 65536.  Returns the ok
+// before it to sink as records.  0 <= out_len <= 65536; a copy may reach
+// 0 <= ctx_len <= 65536 bytes before the block's output (0 for K2, a chunk's
+// context for K4), and its record's src is then negative.  Returns the ok
 // flag; then tells in that it is done (in.finish(w)).
 template <class W, class In, class Sink>
-SNAPPY_HD bool judge_block(W& w, int32_t comp_len, int32_t out_len, In& in, Sink& sink) {
+SNAPPY_HD bool judge_block(W& w, int32_t comp_len, int32_t out_len, int32_t ctx_len, In& in, Sink& sink) {
   using VI = typename W::template Var<int32_t>;
   using VB = typename W::template Var<bool>;
   typename W::template Var<Head> head;
@@ -226,7 +232,7 @@ SNAPPY_HD bool judge_block(W& w, int32_t comp_len, int32_t out_len, In& in, Sink
     w.excl_scan(before);
     w.each([&](int l) {
       const int32_t at = opc + before[l];
-      const Op o = head[l].rules(ip + l, at, comp_len, out_len);
+      const Op o = head[l].rules(ip + l, at, comp_len, out_len, ctx_len);
       hdr[l] = o.hdr;
       dist[l] = o.dist;
       stop[l] = (starts >> l & 1u) && (at >= out_len || ip + l >= comp_len || o.bad);
@@ -397,6 +403,30 @@ SNAPPY_HD void move_batch(W& w, typename W::template Var<Rec>& rec, int n, const
     }
     w.sync();
     g = e;
+  }
+}
+
+SNAPPY_HD Rec load_rec(const Rec* p) {  // p 16-byte aligned, read-only while loaded
+#ifdef __CUDA_ARCH__
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  return Rec{v.x, v.y, v.z, v.w};
+#else
+  return *p;
+#endif
+}
+
+// K4's move phase for one chunk: its n records, in order in memory, moved a
+// batch of 32 at a time; each lane loads its record of the next batch before
+// the current batch moves, so the loads are in flight while it does.
+template <class W>
+SNAPPY_HD void move_records(W& w, const Rec* recs, int32_t n, const uint8_t* comp, uint8_t* out) {
+  typename W::template Var<Rec> cur, next;
+  w.each([&](int l) { cur[l] = l < n ? load_rec(recs + l) : Rec{0, 0, 0, 0}; });
+  for (int32_t r0 = 0; r0 < n; r0 += kBatch) {
+    const int32_t r1 = r0 + kBatch;
+    w.each([&](int l) { next[l] = r1 + l < n ? load_rec(recs + r1 + l) : Rec{0, 0, 0, 0}; });
+    move_batch(w, cur, n - r0 < kBatch ? n - r0 : kBatch, comp, out);
+    cur = next;
   }
 }
 

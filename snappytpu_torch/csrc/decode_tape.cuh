@@ -27,6 +27,7 @@
 #include <stdint.h>
 
 #include "decode_block.cuh"
+#include "decode_pipe.cuh"
 
 namespace snappy_tape {
 
@@ -87,9 +88,87 @@ SNAPPY_HD bool run_tape(int64_t nrecs, int64_t cap, Fetch& fetch, Move& move) {
   return true;
 }
 
+// K5's producer: the tape of a block with 0 <= nrecs <= cap records, 32 per
+// step, one per lane; load(w, r, w0, w1) gives lane l record r + l's two
+// words (zeros past nrecs), and the next step's are loaded before this one
+// is handed over.  Each lane checks its record (in_image); a ballot finds
+// the first one refused, and the records before it go to sink (room(n) ->
+// a slot with room for n, commit(n), finish(), as the judge's sink of
+// decode_pipe.cuh) as decode_pipe.cuh's Recs in image coordinates, for
+// move_batch with comp = out = img:
+//   a copy  {dst, src, len, dst - src}
+//   a fill  {dst, dst - p, len, p}
+// move_batch is exact on a batch whose records are contiguous (each dst is
+// the previous dst + len) and read only bytes before their dst, which every
+// builder tape's batches are: it joins a run of pieces at one distance into
+// one record and cuts the batch into groups that read nothing they write.
+// A batch that is not so (a tape the builder never writes) goes one record
+// per batch instead, a copy as {dst, src, len, 0}, which move_batch moves as
+// a literal from img + src: one group per record, the walk of run_tape.
+// Returns the ok flag: run_tape's, and the moves are run_tape's too.
+template <class W, class Load, class Sink>
+SNAPPY_HD bool produce_tape(W& w, int32_t nrecs, Load& load, Sink& sink) {
+  using snappy_pipe::Rec;
+  using VI = typename W::template Var<int32_t>;
+  using VB = typename W::template Var<bool>;
+  using VR = typename W::template Var<Rec>;
+  VI w0, w1, n0, n1, end, prev;
+  VB bad, brk;
+  VR rec, one;
+  bool good = true;
+  load(w, 0, w0, w1);
+  for (int32_t r0 = 0; r0 < nrecs; r0 += kLanes) {
+    load(w, r0 + kLanes, n0, n1);
+    w.each([&](int l) { bad[l] = r0 + l < nrecs && !in_image(decode_record(w0[l], w1[l])); });
+    const uint32_t refused = w.ballot(bad);
+    const int n = refused ? snappy_pipe::lowest(refused) : (nrecs - r0 < kLanes ? nrecs - r0 : kLanes);
+    w.each([&](int l) {  // lanes below n hold accepted records, whose sums cannot overflow
+      const Record x = decode_record(w0[l], w1[l]);
+      const int32_t dst = w1[l], len = static_cast<int32_t>(x.len), src = static_cast<int32_t>(x.src);
+      const int32_t p = static_cast<int32_t>(x.period);
+      if (l >= n || len == 0) {
+        rec[l] = one[l] = Rec{l < n ? dst : 0, 0, 0, 0};
+      } else if (p) {
+        rec[l] = one[l] = Rec{dst, dst - p, len, p};
+      } else {
+        rec[l] = Rec{dst, src, len, dst - src};
+        one[l] = Rec{dst, src, len, 0};
+      }
+      end[l] = rec[l].dst + rec[l].len;
+      prev[l] = l > 0 ? l - 1 : 0;
+    });
+    const VI prev_end = w.gather(end, prev);
+    w.each([&](int l) { brk[l] = l < n && ((l > 0 && rec[l].dst != prev_end[l]) || rec[l].dist < 0); });
+    if (n && !w.ballot(brk)) {
+      Rec* slot = sink.room(snappy_pipe::kBatch);  // a batch of its own
+      w.each([&](int l) {
+        if (l < n) slot[l] = rec[l];
+      });
+      sink.commit(n);
+    } else {
+      for (int i = 0; i < n; ++i) {
+        Rec* slot = sink.room(snappy_pipe::kBatch);
+        w.each([&](int l) {
+          if (l == i) slot[0] = one[l];
+        });
+        sink.commit(1);
+      }
+    }
+    if (refused) {
+      good = false;
+      break;
+    }
+    w0 = n0;
+    w1 = n1;
+  }
+  sink.finish();
+  return good;
+}
+
 #ifdef __CUDACC__
-// K5's fetch and move (decode_tape.cu), also the `full-D1` mode of the tape
-// probe T3 (tape_probe.cu).  Records r..r+31 are loaded by the 32 lanes when
+// K6's fetch and move (decode_tape.cu; K5's walk until the producer above
+// took its place), also the `full-D1` mode of the tape probe T3
+// (tape_probe.cu).  Records r..r+31 are loaded by the 32 lanes when
 // r reaches a multiple of 32; record r is then shuffled from lane r % 32.
 // The tape is walked in order, so every lane calls this with the same r.
 // __host__ __device__ only so that the shared walk instantiates; the host

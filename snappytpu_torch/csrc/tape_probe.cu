@@ -1,12 +1,13 @@
-// T3: the tape probe — K5's record walk, one cost changed per mode.
+// T3: the tape probe — K6's record-by-record walk (K5's until K5 moved onto
+// K2's grouped mover, decode_tape.cu), one cost changed per mode.
 //
 // Replaces the TPU kernels of tools/tape_probe.py `runner` (`make_kernel`,
 // `make_acc_kernel`, `make_rowbatch_kernel`), which time variants of the
 // tape decoder's movement loop to find what serialises it.  Every mode here
 // is snappy_tape::run_tape (decode_tape.cuh, unchanged: it validates each
 // record and stops at the first one outside the image) with another fetch or
-// move functor beside K5's WarpFetch / WarpMove:
-//   full-D1    K5 exactly: the 32 lanes load 32 records at once when the walk
+// move functor beside K6's WarpFetch / WarpMove:
+//   full-D1    K6 exactly: the 32 lanes load 32 records at once when the walk
 //              reaches a multiple of 32, and each record is broadcast by
 //              __shfl_sync; so the walk waits on global memory once a group
 //   full-D3    groups g, g+1 and g+2 are loaded ahead into a ring in shared
@@ -15,7 +16,7 @@
 //              (record load-ahead; see AheadFetch)
 //   loads      fetch and loop only: no byte moves and no __syncwarp; every
 //              record is folded into one word, written once per block
-//   const-dst  K5's reads and a __syncwarp per record, but every record's
+//   const-dst  K6's reads and a __syncwarp per record, but every record's
 //              bytes land at one fixed destination: a 512-byte scratch area
 //              beside the image.  The image is never written, so every read
 //              sees the staged image and every lane writes its own bytes
@@ -45,9 +46,9 @@
 //              writes a byte that an earlier record of the step reads or
 //              writes; a step where one does (never on the builder's tapes,
 //              whose destinations advance and are written once) runs record
-//              by record with a __syncwarp each, as K5.
+//              by record with a __syncwarp each, as K6.
 // full-D1, full-D3, acc and rowbatchK move every accepted record's bytes as
-// K5 does and give K5's bytes and flags exactly: decode_tape.cuh's argument
+// K6 does and give K6's (and K5's) bytes and flags exactly: decode_tape.cuh's argument
 // (a copy never overlaps its own destination, a fill reads only the p bytes
 // before it) makes each record's bytes the same in any lane order, and the
 // staging (acc) and the resolution (rowbatchK) give every read the value the
@@ -59,8 +60,8 @@
 // words: the record fold in word 0 (loads), the scratch area (const-dst),
 // zero for the other modes.
 //
-// What bounds it on the H100: K5's, one serial chain of records per block,
-// one block per SM.  Design: K5's shape — one thread block of 256 threads per
+// What bounds it on the H100: K6's, one serial chain of records per block,
+// one block per SM.  Design: K6's shape — one thread block of 256 threads per
 // block, the 139,776-byte image (plus 1 KiB of window or scratch) in dynamic
 // shared memory, warp 0 walks.
 

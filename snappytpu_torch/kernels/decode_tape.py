@@ -14,12 +14,14 @@ csrc/decode_tape.cuh states their format.
                       rows -> ((B, 65536) uint8, (B,) bool ok = nrecs >= 0)
   _run_tape_k (K6)    the same with the JAX package's K blocks per grid step;
                       B % K == 0.  On Hopper independent blocks already run
-                      in separate thread blocks, so it launches K5's kernel
+                      in separate thread blocks, so K is only checked; its
+                      kernel keeps the record-by-record walk, K5's A/B
+                      yardstick
   decode_blocks_tape  host rows -> tapes -> the device; -9 blocks are decoded
                       by K2 on the same device, -10 blocks report not ok
 
-On a CUDA tensor the kernel in csrc/decode_tape.cu runs; on a CPU tensor the
-plain version below does.  A record that leaves the image, or a copy whose
+On a CUDA tensor the kernels in csrc/decode_tape.cu run (K5 on K2's grouped
+mover, K6 record by record); on a CPU tensor the plain version below does.  A record that leaves the image, or a copy whose
 source overlaps its destination, stops the walk and the block reports not
 ok (never the builder's records; csrc/decode_tape.cuh says why).
 """
@@ -129,9 +131,9 @@ def _checked(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor):
     return tapes.contiguous(), nrecs.to(torch.int32).contiguous(), comp_u8.contiguous()
 
 
-def _launch(tapes, nrecs, comp_u8, what: str):
-    """Run the CUDA tape kernel on a checked batch; an empty batch launches
-    nothing.  The caller counts launches."""
+def _launch(tapes, nrecs, comp_u8, what: str, entry: str):
+    """Run the CUDA tape kernel `entry` on a checked batch; an empty batch
+    launches nothing.  The caller counts launches."""
     from .._build import check, library
 
     B = comp_u8.shape[0]
@@ -143,7 +145,7 @@ def _launch(tapes, nrecs, comp_u8, what: str):
     comp_u8 = comp_u8 if comp_u8.data_ptr() % 16 == 0 else comp_u8.clone()
     tapes = tapes if tapes.data_ptr() % 8 == 0 else tapes.clone()
     with torch.cuda.device(comp_u8.device):
-        rc = library().snappy_run_tape(
+        rc = getattr(library(), entry)(
             tapes.data_ptr(), nrecs.data_ptr(), comp_u8.data_ptr(), out.data_ptr(), ok.data_ptr(),
             B, tapes.shape[1] // 2, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
@@ -157,7 +159,7 @@ def _run_tape(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor):
     tapes, nrecs, comp_u8 = _checked(tapes, nrecs, comp_u8)
     if comp_u8.device.type == "cpu":
         return run_tape_ref(tapes, nrecs, comp_u8)
-    out = _launch(tapes, nrecs, comp_u8, "_run_tape")
+    out = _launch(tapes, nrecs, comp_u8, "_run_tape", "snappy_run_tape")
     if comp_u8.shape[0]:
         launches += 1
     return out
@@ -171,7 +173,7 @@ def _run_tape_k(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor,
         raise ValueError(f"batch of {comp_u8.shape[0]} blocks is not a multiple of K={K}")
     if comp_u8.device.type == "cpu":
         return run_tape_ref(tapes, nrecs, comp_u8)
-    out = _launch(tapes, nrecs, comp_u8, "_run_tape_k")
+    out = _launch(tapes, nrecs, comp_u8, "_run_tape_k", "snappy_run_tape_k")
     if comp_u8.shape[0]:
         k_launches += 1
     return out

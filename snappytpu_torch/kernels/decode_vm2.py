@@ -11,8 +11,10 @@ the 64 KiB output grid, in order, with a sliding 64 KiB context:
 (N, 73728) uint8 rows + (N,) int32 comp_lens, out_lens (<= 65536) and
 ctx_lens (bytes of earlier output chunk i's copies may reach) + (65536,)
 uint8 ctx0 (the output before chunk 0, right-aligned) -> ((N, 65536) uint8
-rows, (N,) bool ok).  On a CUDA tensor the kernel in csrc/decode_stream.cu
-runs; on a CPU tensor the plain version below does.
+rows, (N,) bool ok).  On a CUDA tensor the two kernels in
+csrc/decode_stream.cu run, one call each: K4a parses every chunk at once
+into records (_stream_parse), K4b moves them chunk by chunk
+(_stream_move); on a CPU tensor the plain version below does.
 
 Contract (the JAX kernel's): a chunk is ok under K2's rule, with copies
 allowed ctx_lens[i] bytes before the chunk's output; the window slides by
@@ -29,7 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .decode_vm4 import BS, _decode_into, _launch, checked, decode_blocks_ref
+from .decode_vm4 import BS, PAD_OUT, _decode_into, _launch, checked, decode_blocks_ref
 
 launches = 0         # kernel launches by decode_blocks_vm2 (the CUDA route only)
 stream_launches = 0  # kernel launches by decode_stream_vm (the CUDA route only)
@@ -67,27 +69,55 @@ def decode_stream_ref(comp_u8, comp_lens, out_lens, ctx_lens, ctx0_u8):
     return torch.from_numpy(out).to(dev), torch.from_numpy(ok).to(dev)
 
 
-def _launch_stream(comp_u8, comp_lens, out_lens, ctx_lens, ctx0_u8):
-    """Run the CUDA windowed decoder on a checked call; no chunks launch
-    nothing.  The caller counts launches."""
+REC_CAP = PAD_OUT // 2  # records per chunk: an op takes two comp bytes or more
+
+
+def _stream_parse(comp_u8, comp_lens, out_lens, ctx_lens):
+    """K4a on a checked call of N > 0 chunks -> ((N, REC_CAP, 4) int32
+    records, (N,) int32 counts, (N,) bool ok)."""
+    from .._build import check, library
+
+    N, dev = comp_u8.shape[0], comp_u8.device
+    recs = torch.empty((N, REC_CAP, 4), dtype=torch.int32, device=dev)
+    nrecs = torch.empty(N, dtype=torch.int32, device=dev)
+    ok = torch.empty(N, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = library().snappy_decode_stream_parse(
+            comp_u8.data_ptr(), comp_lens.data_ptr(), out_lens.data_ptr(), ctx_lens.data_ptr(), recs.data_ptr(),
+            nrecs.data_ptr(), ok.data_ptr(), N, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    check(rc, "decode_stream_vm (parse)")
+    return recs, nrecs, ok
+
+
+def _stream_move(comp_u8, comp_lens, out_lens, ctx0_u8, recs, nrecs):
+    """K4b: _stream_parse's records of a checked call moved chunk by chunk
+    -> (N, BS) uint8 rows."""
     from .._build import check, library
 
     N = comp_u8.shape[0]
     out = torch.empty((N, BS), dtype=torch.uint8, device=comp_u8.device)
-    ok = torch.empty(N, dtype=torch.bool, device=comp_u8.device)
+    with torch.cuda.device(comp_u8.device):
+        rc = library().snappy_decode_stream_move(
+            comp_u8.data_ptr(), comp_lens.data_ptr(), out_lens.data_ptr(), ctx0_u8.data_ptr(), recs.data_ptr(),
+            nrecs.data_ptr(), out.data_ptr(), N, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    check(rc, "decode_stream_vm (move)")
+    return out
+
+
+def _launch_stream(comp_u8, comp_lens, out_lens, ctx_lens, ctx0_u8):
+    """Run K4a then K4b on a checked call; no chunks launch nothing.  The
+    caller counts launches."""
+    N = comp_u8.shape[0]
     if N == 0:
-        return out, ok
-    # the kernel stages rows and ctx0 with 16-byte loads
+        return (torch.empty((0, BS), dtype=torch.uint8, device=comp_u8.device),
+                torch.empty(0, dtype=torch.bool, device=comp_u8.device))
+    # the kernels stage rows and ctx0 with 16-byte loads
     comp_u8 = comp_u8 if comp_u8.data_ptr() % 16 == 0 else comp_u8.clone()
     ctx0_u8 = ctx0_u8 if ctx0_u8.data_ptr() % 16 == 0 else ctx0_u8.clone()
-    with torch.cuda.device(comp_u8.device):
-        rc = library().snappy_decode_stream(
-            comp_u8.data_ptr(), comp_lens.data_ptr(), out_lens.data_ptr(), ctx_lens.data_ptr(),
-            ctx0_u8.data_ptr(), out.data_ptr(), ok.data_ptr(), N,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-        )
-    check(rc, "decode_stream_vm")
-    return out, ok
+    recs, nrecs, ok = _stream_parse(comp_u8, comp_lens, out_lens, ctx_lens)
+    return _stream_move(comp_u8, comp_lens, out_lens, ctx0_u8, recs, nrecs), ok
 
 
 def decode_stream_vm(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor,

@@ -1,6 +1,7 @@
 """Tape probe (T3) — the counterpart of the JAX package's
-tools/tape_probe.py: times variants of the tape decoder's record walk (K5)
-to find what serialises it.
+tools/tape_probe.py: times variants of the tape decoder's record-by-record
+walk (K6's, and K5's before it moved onto K2's grouped mover) to find what
+serialises it.
 
     python -m snappytpu_torch.tools.tape_probe [--modes full-D3] [--device cuda]
 
@@ -13,7 +14,8 @@ is K = 4).  `probe` is the entry: on a CUDA tensor it launches the kernel,
 on a CPU tensor it runs the plain version `probe_ref`; both return per
 block the output region, the ok flag and 128 auxiliary words (the record
 fold of `loads`, the scratch area of `const-dst`).  The exact modes give
-K5's bytes, so their plain version is K5's (`run_tape_ref`).  The inputs
+K6's bytes, which are K5's, so their plain version is theirs
+(`run_tape_ref`).  The inputs
 are the text and mixed corpora's staged sets in tape form (B = 128, four
 sets), as the JAX tool's; --modes is its SNAPPYTPU_TAPE_MODE, and the
 verification it made by default runs here too (exact modes against

@@ -1,10 +1,10 @@
 """The kernels' shared headers, checked from their own source without a GPU.
 
 snappytpu_torch/csrc/decode_block.cuh holds the op rules, the op parser and
-the op-by-op decode loop (K3, K4); decode_pipe.cuh holds K2's parse -> move
-pipeline; decode_tape.cuh holds the tape record format and how a warp's
-lanes move a record (K5, K6).  All are host+device code.  Here g++ builds
-them into a tiny host harness:
+the op-by-op decode loop (K3); decode_pipe.cuh holds K2's parse -> move
+pipeline, whose pieces K4 and K5 reuse; decode_tape.cuh holds the tape
+record format, K5's producer and K6's record-by-record walk.  All are
+host+device code.  Here g++ builds them into a tiny host harness:
   * K3: a mover with the kernel's parallel copy indexing
     (out[opc + j] = out[opc - dist + j % dist]), held against the plain
     version and the JAX decoder on the rows of test_torch_decode.py, plus a
@@ -16,10 +16,19 @@ them into a tiny host harness:
     the image zeroed from out_len on, garbage before), held against the
     plain version on the same rows, the mutation fuzz, hand cases and rows
     with garbage past comp_len;
-  * K4: the parser with ctx_len > 0 over the kernel's 128 KiB ring, held
-    against the plain windowed decoder;
-  * K5: the tape walk with the kernel's lane indexing (32 lanes emulated
-    in reverse order; fills index j % p), held against the plain _run_tape.
+  * K4: both launches, K2's sizer and its judge with each chunk's ctx_len
+    writing records (K4a), then the records moved a batch at a time over
+    the kernel's linear image of context and output, slid by out_len after
+    each chunk (K4b), held against the plain windowed decoder on 32 calls
+    (malformed chunks, a random ctx0, copies at the context's edge,
+    lengths out of range);
+  * K5: the producer (records checked and converted, batches that are not
+    forward cut record by record) straight into K2's mover, held against
+    the plain _run_tape on builder tapes, random records and forward
+    records anywhere in the image;
+  * K6: the record-by-record walk with the kernel's lane indexing (32 lanes
+    emulated in reverse order; fills index j % p), held against the plain
+    _run_tape.
 """
 
 import ctypes
@@ -42,6 +51,7 @@ from test_torch_decode import FAMILIES, _rows, decoded, golden_streams, own_stre
 HARNESS = r"""
 #include <string.h>
 #include <deque>
+#include <vector>
 #include "decode_block.cuh"
 #include "decode_pipe.cuh"
 #include "decode_tape.cuh"
@@ -61,7 +71,7 @@ struct HostMover {
 extern "C" int decode_block_host(const uint8_t* row, int64_t comp_len, int64_t out_len, uint8_t* out) {
   memset(out, 0, snappy_block::kBlockSize);
   HostMover mv{row, out};
-  return snappy_block::decode_block(row, comp_len, out_len, 0, mv) ? 1 : 0;
+  return snappy_block::decode_block(row, comp_len, out_len, mv) ? 1 : 0;
 }
 
 namespace {
@@ -179,43 +189,65 @@ extern "C" int decode_pipe_host(const uint8_t* row, int32_t comp_len, int32_t ou
     PipeWindows windows;
     snappy_pipe::size_block(w, comp_s, comp_len, windows);  // the sizer runs ahead, here to the end
     PipeSink sink{w, comp_s, img, &stats[0]};
-    good = snappy_pipe::judge_block(w, comp_len, out_len, windows, sink);
+    good = snappy_pipe::judge_block(w, comp_len, out_len, 0, windows, sink);
   }
   memcpy(out, img, snappy_block::kBlockSize);
   return good ? 1 : 0;
 }
 
 namespace {
-constexpr int64_t kRing = 2 * snappy_block::kBlockSize;
-struct RingMover {  // decode_stream.cu's addressing, one byte at a time
-  const uint8_t* comp;
-  uint8_t* ring;
-  int64_t base;
-  void literal(int64_t opc, int64_t src, int64_t len) {
-    for (int64_t j = 0; j < len; ++j) ring[(base + opc + j) & (kRing - 1)] = comp[src + j];
-  }
-  void copy(int64_t opc, int64_t dist, int64_t len) {
-    for (int64_t j = 0; j < len; ++j)
-      ring[(base + opc + j) & (kRing - 1)] = ring[(base + opc - dist + (dist >= len ? j : j % dist)) & (kRing - 1)];
-  }
+struct RecordSink {  // decode_stream.cu's: K4a's records, in order, to the chunk's part of the buffer
+  Rec* recs;
+  int count = 0;
+  Rec* room(int) { return recs + count; }
+  void commit(int n) { count += n; }
+  void finish() {}
 };
+
+// A row staged as the kernels stage it: comp_len bytes rounded up to 16,
+// kSlack zero bytes, garbage after (none for lengths out of range).
+void stage_row(uint8_t* comp_s, const uint8_t* row, int32_t comp_len) {
+  memset(comp_s, 0xA5, snappy_block::kPadOut + snappy_pipe::kSlack);
+  const int nrow = 0 <= comp_len && comp_len <= snappy_block::kPadOut ? (comp_len + 15) / 16 : 0;
+  memcpy(comp_s, row, 16 * nrow);
+  memset(comp_s + 16 * nrow, 0, snappy_pipe::kSlack);
+}
 }  // namespace
 
+// K4 on the host, both launches: K4a parses every chunk (K2's sizer, its
+// judge with the chunk's ctx_len) into records; K4b moves them chunk by
+// chunk over decode_stream.cu's linear image (64 KiB of context, then the
+// chunk's output) and slides it by out_len.  stats = {records, groups}.
 extern "C" void decode_stream_host(const uint8_t* rows, const int32_t* comp_lens, const int32_t* out_lens,
                                    const int32_t* ctx_lens, const uint8_t* ctx0, int64_t n, uint8_t* out,
-                                   uint8_t* ok) {
-  static uint8_t ring[kRing];
-  memcpy(ring, ctx0, snappy_block::kBlockSize);
-  int64_t base = snappy_block::kBlockSize;
-  for (int64_t c = 0; c < n; ++c) {
-    for (int64_t j = 0; j < snappy_block::kBlockSize; ++j) ring[(base + j) & (kRing - 1)] = 0;
-    const uint8_t* row = rows + c * snappy_block::kPadOut;
-    const int64_t ctx = ctx_lens[c] < 0 ? 0 : (ctx_lens[c] > snappy_block::kBlockSize ? snappy_block::kBlockSize : ctx_lens[c]);
-    RingMover mv{row, ring, base};
-    ok[c] = snappy_block::decode_block(row, comp_lens[c], out_lens[c], ctx, mv) ? 1 : 0;
-    for (int64_t j = 0; j < snappy_block::kBlockSize; ++j)
-      out[c * snappy_block::kBlockSize + j] = ring[(base + j) & (kRing - 1)];
-    if (out_lens[c] > 0 && out_lens[c] <= snappy_block::kBlockSize) base += out_lens[c];
+                                   uint8_t* ok, int64_t* stats) {
+  constexpr int64_t kBS = snappy_block::kBlockSize;
+  constexpr int64_t kCap = snappy_block::kPadOut / 2;
+  static uint8_t comp_s[snappy_block::kPadOut + snappy_pipe::kSlack];
+  std::vector<Rec> recs(n * kCap);
+  std::vector<int32_t> nrecs(n, 0);
+  PipeWarp w{&stats[1]};
+  for (int64_t c = 0; c < n; ++c) {  // K4a: the chunks are independent
+    const int32_t cl = comp_lens[c], ol = out_lens[c];
+    ok[c] = 0;
+    if (cl < 0 || cl > snappy_block::kPadOut || ol < 0 || ol > kBS) continue;
+    stage_row(comp_s, rows + c * snappy_block::kPadOut, cl);
+    PipeWindows windows;
+    snappy_pipe::size_block(w, comp_s, cl, windows);
+    RecordSink sink{recs.data() + c * kCap};
+    const int32_t ctx = ctx_lens[c] < 0 ? 0 : (ctx_lens[c] > kBS ? kBS : ctx_lens[c]);
+    ok[c] = snappy_pipe::judge_block(w, cl, ol, ctx, windows, sink) ? 1 : 0;
+    nrecs[c] = sink.count;
+    stats[0] += sink.count;
+  }
+  static uint8_t img[2 * kBS];
+  memcpy(img, ctx0, kBS);
+  for (int64_t c = 0; c < n; ++c) {  // K4b: in order
+    stage_row(comp_s, rows + c * snappy_block::kPadOut, comp_lens[c]);
+    memset(img + kBS, 0, kBS);
+    snappy_pipe::move_records(w, recs.data() + c * kCap, nrecs[c], comp_s, img + kBS);
+    memcpy(out + c * kBS, img + kBS, kBS);
+    if (out_lens[c] > 0 && out_lens[c] <= kBS) memmove(img, img + out_lens[c], kBS);
   }
 }
 
@@ -232,6 +264,38 @@ struct HostWarp {  // the 32 lanes in reverse, so that an order-dependent move w
 };
 }  // namespace
 
+namespace {
+struct TapeLoad {  // decode_tape.cu's: lane l gets record r + l's words, zeros past nrecs
+  const int32_t* tape;
+  int32_t nrecs;
+  void operator()(PipeWarp&, int32_t r, PipeWarp::Var<int32_t>& w0, PipeWarp::Var<int32_t>& w1) const {
+    for (int l = 0; l < 32; ++l) {
+      w0[l] = r + l < nrecs ? tape[2 * (r + l)] : 0;
+      w1[l] = r + l < nrecs ? tape[2 * (r + l) + 1] : 0;
+    }
+  }
+};
+}  // namespace
+
+// K5's kernel body on the host: the producer's batches straight to
+// move_batch with comp = out = img.  stats = {batches, groups}.
+extern "C" int run_tape_pipe_host(const int32_t* tape, int64_t nrecs, int64_t cap, const uint8_t* row, uint8_t* out,
+                                  int64_t* stats) {
+  static uint8_t img[snappy_tape::kImageBytes + 16];  // a word move may read a word past its source
+  memset(img, 0, sizeof img);
+  memcpy(img + snappy_tape::kCompOff, row, snappy_block::kPadOut);
+  bool good = false;
+  if (0 <= nrecs && nrecs <= cap) {
+    PipeWarp w{&stats[1]};
+    PipeSink sink{w, img, img, &stats[0]};
+    TapeLoad load{tape, static_cast<int32_t>(nrecs)};
+    good = snappy_tape::produce_tape(w, static_cast<int32_t>(nrecs), load, sink);
+  }
+  memcpy(out, img + snappy_tape::kOutBase, snappy_block::kBlockSize);
+  return good ? 1 : 0;
+}
+
+// K6's walk (decode_tape.cuh's run_tape) on the host.
 extern "C" int run_tape_host(const int32_t* tape, int64_t nrecs, int64_t cap, const uint8_t* row, uint8_t* out) {
   static uint8_t img[snappy_tape::kImageBytes];
   memset(img, 0, sizeof img);
@@ -260,10 +324,12 @@ def lib(tmp_path_factory):
     lib.decode_block_host.restype = ctypes.c_int
     lib.decode_pipe_host.argtypes = [P, ctypes.c_int32, ctypes.c_int32, P, P]
     lib.decode_pipe_host.restype = ctypes.c_int
-    lib.decode_stream_host.argtypes = [P, P, P, P, P, I64, P, P]
+    lib.decode_stream_host.argtypes = [P, P, P, P, P, I64, P, P, P]
     lib.decode_stream_host.restype = None
     lib.run_tape_host.argtypes = [P, I64, I64, P, P]
     lib.run_tape_host.restype = ctypes.c_int
+    lib.run_tape_pipe_host.argtypes = [P, I64, I64, P, P, P]
+    lib.run_tape_pipe_host.restype = ctypes.c_int
     return lib
 
 
@@ -573,9 +639,10 @@ def _stream_cases():
 
 @pytest.mark.parametrize("case", range(32))
 def test_ring_decoder_equals_plain_windowed(lib, case):
-    """decode_block.cuh with ctx_len > 0 over decode_stream.cu's ring: flags
-    and rows equal to the plain windowed decoder for every chunk, before and
-    after a malformed one."""
+    """K4's two launches on the host, K2's judge with ctx_len > 0 to a record
+    buffer, then the records moved over decode_stream.cu's linear image with
+    its slide: flags and rows equal to the plain windowed decoder for every
+    chunk, before and after a malformed one."""
     cases = _stream_cases()
     assert len(cases) == 32
     rows, cl, ol, xl, ctx0 = cases[case]
@@ -583,11 +650,13 @@ def test_ring_decoder_equals_plain_windowed(lib, case):
     cl, ol, xl = (np.ascontiguousarray(a, np.int32) for a in (cl, ol, xl))
     out = np.empty((rows.shape[0], C.MAX_BLOCK_SIZE), np.uint8)
     ok = np.empty(rows.shape[0], np.uint8)
+    stats = np.zeros(2, np.int64)
     lib.decode_stream_host(rows.ctypes.data, cl.ctypes.data, ol.ctypes.data, xl.ctypes.data, ctx0.ctypes.data,
-                           rows.shape[0], out.ctypes.data, ok.ctypes.data)
+                           rows.shape[0], out.ctypes.data, ok.ctypes.data, stats.ctypes.data)
     pout, pok = decode_vm2.decode_stream_ref(*(torch.from_numpy(a) for a in (rows, cl, ol, xl, ctx0)))
     np.testing.assert_array_equal(ok.astype(bool), pok.numpy())
     np.testing.assert_array_equal(out, pout.numpy())
+    assert 0 < stats[1] < stats[0]  # records joined and grouped, fewer groups than records
     if case == 30:
         assert ok.tolist() == [1, 0] * 5
 
@@ -623,7 +692,57 @@ def test_tape_walk_equals_plain_on_random_records(lib, seed):
     among them: the header's walk and the plain version agree on every flag
     and byte (both stop at the first record they refuse)."""
     rng = np.random.default_rng(600 + seed)
-    B, S = 48, 64
+    B = 48
+    tapes, nrecs = _random_tapes(rng, B, 64)
+    rows = rng.integers(0, 256, (B, C.MAX_COMPRESSED_BLOCK_SIZE), dtype=np.uint8)
+    out, ok = _run_tapes(lib, tapes, nrecs, rows)
+    pout, pok = decode_tape.run_tape_ref(torch.from_numpy(tapes), torch.from_numpy(nrecs), torch.from_numpy(rows))
+    np.testing.assert_array_equal(ok, pok.numpy())
+    np.testing.assert_array_equal(out, pout.numpy())
+    assert 0 < ok.sum() < B
+
+
+def _run_tape_pipe(lib, tapes, nrecs, rows):
+    """K5's producer and mover on the host -> (rows, ok, {batches, groups})."""
+    tapes, rows = np.ascontiguousarray(tapes, np.int32), np.ascontiguousarray(rows)
+    out = np.empty((rows.shape[0], C.MAX_BLOCK_SIZE), np.uint8)
+    stats = np.zeros(2, np.int64)
+    ok = np.array([lib.run_tape_pipe_host(tapes[b].ctypes.data, int(nrecs[b]), tapes.shape[1] // 2,
+                                          rows[b].ctypes.data, out[b].ctypes.data, stats.ctypes.data)
+                   for b in range(rows.shape[0])], bool)
+    return out, ok, {"batches": int(stats[0]), "groups": int(stats[1])}
+
+
+def _one_batch_per_step(nrecs, cap):
+    """The batches a tape of forward steps makes: one per 32 records, and
+    one empty batch for an empty tape."""
+    nr = np.asarray(nrecs, np.int64)
+    nr = nr[(nr >= 0) & (nr <= cap)]
+    return int(np.maximum((nr + 31) // 32, 1).sum())
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_tape_pipe_equals_plain_run_tape(lib, family):
+    """K5's producer (checks, conversion to image-coordinate records) and
+    K2's grouped mover, on builder tapes of test_torch_decode.py's rows:
+    equal to the plain _run_tape and, where ok, to the JAX decoder's rows.
+    Every batch of a builder tape is forward: one batch per 32 records."""
+    if not cpu.available:
+        pytest.skip("the tape builder needs the native runtime")
+    rows, cl, ol, jout, jok = decoded(family)
+    tapes, nrecs = decode_tape.build_tapes(rows, cl, ol)
+    out, ok, stats = _run_tape_pipe(lib, tapes, nrecs, rows)
+    pout, pok = decode_tape.run_tape_ref(torch.from_numpy(tapes), torch.from_numpy(nrecs), torch.from_numpy(rows))
+    np.testing.assert_array_equal(ok, pok.numpy())
+    np.testing.assert_array_equal(ok, nrecs >= 0)
+    np.testing.assert_array_equal(out, pout.numpy())
+    np.testing.assert_array_equal(out[ok], jout[ok])
+    assert stats["batches"] == _one_batch_per_step(nrecs, tapes.shape[1] // 2)
+
+
+def _random_tapes(rng, B: int, S: int):
+    """test_tape_walk_equals_plain_on_random_records's records: random, with
+    overlapping copies and records that leave the image among them."""
     img = decode_tape.IMAGE_BYTES
     src = rng.integers(0, 1 << 18, (B, S))
     src = np.where(rng.random((B, S)) < 0.9, src % img, src)
@@ -632,11 +751,80 @@ def test_tape_walk_equals_plain_on_random_records(lib, seed):
                   rng.integers(0, 4096, (B, S)))
     pk2 = rng.integers(0, 4, (B, S))
     tapes = np.stack([(src | pk2 << 18 | ln << 20).astype(np.uint32).view(np.int32), dst.astype(np.int32)], -1)
-    tapes = tapes.reshape(B, 2 * S)
-    nrecs = rng.integers(-10, S + 3, B).astype(np.int32)
-    rows = rng.integers(0, 256, (B, C.MAX_COMPRESSED_BLOCK_SIZE), dtype=np.uint8)
-    out, ok = _run_tapes(lib, tapes, nrecs, rows)
+    return tapes.reshape(B, 2 * S), rng.integers(-10, S + 3, B).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_tape_pipe_equals_plain_on_random_records(lib, seed):
+    """K5's producer on the random records of the walk's fuzz, whose batches
+    are not forward (dsts not contiguous, sources after their dsts): one
+    record per batch, every flag and byte equal to the plain version."""
+    rng = np.random.default_rng(600 + seed)
+    tapes, nrecs = _random_tapes(rng, 48, 64)
+    rows = rng.integers(0, 256, (48, C.MAX_COMPRESSED_BLOCK_SIZE), dtype=np.uint8)
+    out, ok, stats = _run_tape_pipe(lib, tapes, nrecs, rows)
     pout, pok = decode_tape.run_tape_ref(torch.from_numpy(tapes), torch.from_numpy(nrecs), torch.from_numpy(rows))
     np.testing.assert_array_equal(ok, pok.numpy())
     np.testing.assert_array_equal(out, pout.numpy())
-    assert 0 < ok.sum() < B
+    assert 0 < ok.sum() < 48
+    assert stats["batches"] > _one_batch_per_step(nrecs, 64)
+
+
+def _forward_tapes(rng, B: int, S: int):
+    """Tapes whose records are contiguous and read before their dst, as the
+    builder's are, but anywhere in the image (the guard and the compressed
+    row too): copies from far back, from the batch's own output and from the
+    compressed row, fills of period 1, 2 and 4, runs at one distance that
+    join, empty records; in some tapes one record whose source lies after
+    its dst (a batch that is not forward) or one that is refused."""
+    img = decode_tape.IMAGE_BYTES
+    tapes = np.zeros((B, S, 2), np.int64)
+    nrecs = np.zeros(B, np.int32)
+    for b in range(B):
+        dst = int(rng.integers(600, img // 2))
+        dist = 0
+        for r in range(S):
+            ln = int((rng.integers(0, 17), rng.integers(17, 128), rng.integers(128, decode_tape.PIECE_MAX + 1))[r % 3])
+            if dst + ln > img:
+                break
+            kind = rng.random()
+            if kind < 0.2:
+                pk2, src = int(rng.integers(1, 4)), 0
+            else:
+                pk2 = 0
+                if kind < 0.45 or dist < ln or dist > dst:  # a new distance: from far back or from the batch's output
+                    dist = int(rng.integers(ln, dst + 1)) if rng.random() < 0.5 else int(rng.integers(ln, 3 * ln + 2))
+                    dist = max(min(dist, dst), 1)
+                src = dst - dist
+                if ln > dist:
+                    ln = dist
+            tapes[b, r] = (src | pk2 << 18 | ln << 20, dst)
+            nrecs[b] = r + 1
+            dst += ln
+        k = int(rng.integers(0, max(nrecs[b], 1)))
+        if b % 6 == 1:  # a source after its dst, not overlapping
+            tapes[b, k, 0] = (tapes[b, k, 1] + 600) | 100 << 20
+        elif b % 6 == 3:  # an overlapping copy: refused
+            tapes[b, k, 0] = (tapes[b, k, 1] - 10) | 100 << 20
+    w0 = tapes[..., 0].astype(np.uint32).view(np.int32)
+    return np.stack([w0, tapes[..., 1].astype(np.int32)], -1).reshape(B, 2 * S), nrecs
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_tape_pipe_equals_plain_on_forward_records(lib, seed):
+    """K5's producer and grouped mover on forward batches that the builder
+    does not make: records that read what the batch just wrote (group cuts),
+    runs at one distance (joined), records in the guard and the compressed
+    row; with a non-forward batch and a refused record in some tapes."""
+    rng = np.random.default_rng(800 + seed)
+    B, S = 36, 96
+    tapes, nrecs = _forward_tapes(rng, B, S)
+    rows = rng.integers(0, 256, (B, C.MAX_COMPRESSED_BLOCK_SIZE), dtype=np.uint8)
+    out, ok, stats = _run_tape_pipe(lib, tapes, nrecs, rows)
+    pout, pok = decode_tape.run_tape_ref(torch.from_numpy(tapes), torch.from_numpy(nrecs), torch.from_numpy(rows))
+    np.testing.assert_array_equal(ok, pok.numpy())
+    np.testing.assert_array_equal(out, pout.numpy())
+    assert ok[0::6].all() and not ok[3::6].any()
+    steps = _one_batch_per_step(nrecs, S)
+    assert steps < stats["batches"] < int(nrecs.sum())  # non-forward batches record by record, the rest whole
+    assert stats["groups"] < int(nrecs.sum())
