@@ -9,11 +9,16 @@ drives the port's paths at full size, each with its kernels' launch counts
 set to 0 just before it and read just after:
 
   1-2   environment, build
-  3-4   K1 (concat) and K2 (the pipelined block decoder) against their plain
-        versions
+  3     K1 (concat, output tiles) against its plain version on six length
+        sets, edges and rows outside the contract among them; K1 and a copy_
+        moving as many bytes (the card's copy floor) timed by CUDA graph
+        replay on cold inputs
+  4     K2 (the pipelined block decoder) against its plain version
   5     the main path: a 32 MB mixed corpus (512 blocks of 64 KiB) encoded on
         the card with both profiles in batches of 128 blocks (torch ops + K1),
-        decoded on the card by K2, compared block by block on the device
+        decoded on the card by K2, compared block by block on the device;
+        then K1 on the sections and lengths the encoder handed it in the
+        first batch of each profile, checked and timed as in phase 3
   6     the user API with device="cuda"
   7     K3 (the op-by-op block decoder) against its plain version; its path is
         the A/B twin of phase 5's decode (the fast batches through K3); then
@@ -73,6 +78,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 BATCH = 128
 MAIN_MB = 32
 WIN_MB = 8  # the windowed path's stream: 128+ chunks, so two K4 calls of 64
+# a kernel's measurements beyond the contract's keys: K4's two launches; K1's
+# time by events around wrapper calls, the copy floor and its main-path times
+K_EXTRAS = ("parse_ms", "move_ms", "events_ms", "copy_floor_ms", "main_path_ms", "main_path_bound_ms")
 
 
 def log(msg: str) -> None:
@@ -91,6 +99,81 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, copies: int, reps: int = 20) -> float:
+    """Device milliseconds per call of fn(i): the calls i = 0 .. copies - 1
+    captured in turn into one CUDA graph, so no host time lies between the
+    launches, replayed once to warm up and then `reps` times between CUDA
+    events.  fn(i) works on the i-th copy of its inputs, and what it returns
+    is kept through the replays, so each call also writes its own output;
+    copies that together exceed the 50 MB L2 find each call's inputs and
+    outputs out of the cache."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(copies):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(i) for i in range(copies)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del outs  # held until the replays are done
+    return start.elapsed_time(end) / (reps * copies)
+
+
+def k1_bytes(lens: torch.Tensor, cap: int, out_cap: int) -> int:
+    """K1's bytes: the sections' clamped lengths read, the lengths, the rows
+    written."""
+    return int(lens.to(torch.int64).clamp(0, cap).sum()) + 4 * lens.numel() + lens.shape[0] * out_cap
+
+
+def k1_sets(rng, present: np.ndarray, cap: int, out_cap: int) -> dict:
+    """Phase 3's (128, 64) length sets: the present random set, then edges:
+    every section 1 byte long (16 sections in a window); lengths 16k - 1,
+    16k, 16k + 1; sections that end within 15 bytes of a multiple of 512 (a
+    warp's stores; every 2 KiB tile edge is one), so that they straddle warp
+    and tile edges; rows that sum to out_cap exactly; and rows outside the
+    contract (negative lengths, above cap, the int32 extremes, sums past
+    out_cap), which the kernel clamps as the plain version does."""
+    B, S = present.shape
+    ar_s, ar_b = np.arange(S)[None, :], np.arange(B)[:, None]
+    edges = 16 * (1 + (ar_s * 5 + ar_b * 3) % (out_cap // S // 16 - 1)) + (ar_s + ar_b) % 3 - 1
+    straddle = np.zeros((B, S), np.int64)
+    for b in range(B):
+        cur = 0
+        for s in range(S):
+            edge = (cur // 512 + 1) * 512
+            j = int(rng.integers(1, 16)) * (1 if rng.random() < 0.5 else -1)
+            end = edge + j if edge + j > cur else edge + 512 + j
+            if end > out_cap:
+                break
+            straddle[b, s] = min(end - cur, cap)
+            cur += straddle[b, s]
+    exact = np.full((B, S), out_cap // S, np.int64)
+    for b in range(1, B):  # row 0 an even split, the others bytes moved between random pairs
+        for _ in range(4 * S):
+            i, k = rng.integers(0, S, 2)
+            x = int(rng.integers(0, min(exact[b, i], cap - exact[b, k]) + 1)) if i != k else 0
+            exact[b, i] -= x
+            exact[b, k] += x
+    broken = rng.integers(-2 * cap, 2 * cap, (B, S))
+    broken[0, :2] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    broken[1::3] = cap
+    broken[2::3] = rng.integers(out_cap // S, 2 * cap, (len(broken[2::3]), S))
+    sets = {"present": present, "one": np.ones((B, S)), "edges": edges, "straddle": straddle, "exact": exact,
+            "broken": broken}
+    sets = {k: np.asarray(v).astype(np.int32) for k, v in sets.items()}
+    assert (sets["exact"].sum(1) == out_cap).all() and (sets["straddle"] > 0).any()
+    return sets
 
 
 def host_ms(fn, reps: int) -> float:
@@ -439,7 +522,7 @@ def main() -> int:
     from snappytpu_torch.bench import corpus
     from snappytpu_torch.format import constants as C
     from snappytpu_torch.format.varint import encode_varint
-    from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4
+    from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4, encode_v2
     from snappytpu_torch.kernels.decode_vm import decode_blocks_vm
     from snappytpu_torch.kernels.encode_v2 import encode_blocks_v2
     from snappytpu_torch.stream import filecodec, framing
@@ -485,18 +568,44 @@ def main() -> int:
     lens_np[4, :] = PAD_OUT // S                     # sums exactly 73728
     lens_np[5:] = np.minimum(lens_np[5:], 1100)
     assert (lens_np.sum(1) <= PAD_OUT).all()
+    k1_err = 0
+    for name, set_np in k1_sets(rng, lens_np, 4 * CAPW, PAD_OUT).items():
+        set_lens = torch.from_numpy(set_np).to(dev)
+        got = concat.concat_rows_words(words, set_lens, PAD_OUT)
+        ref = concat.concat_rows_ref(words.view(torch.uint8), set_lens, PAD_OUT)
+        torch.cuda.synchronize()
+        err = int((got.int() - ref.int()).abs().max())
+        if err != 0 or not torch.equal(got, ref):
+            raise AssertionError(f"K1 differs from its plain version on the {name} lengths (max abs err {err})")
+        k1_err = max(k1_err, err)
+    log("[3 K1] concat (128,64,384) words equals its plain version on the present lengths, all-1-byte sections, "
+        "lengths 16k-1/16k/16k+1, sections straddling warp and tile edges, rows summing to 73728 exactly and "
+        "rows outside the contract (max abs err 0)")
     lens = torch.from_numpy(lens_np).to(dev)
-    got = concat.concat_rows_words(words, lens, PAD_OUT)
-    ref = concat.concat_rows_ref(words.view(torch.uint8), lens, PAD_OUT)
-    torch.cuda.synchronize()
-    k1_err = int((got.int() - ref.int()).abs().max())
-    if k1_err != 0 or not torch.equal(got, ref):
-        raise AssertionError(f"K1 differs from its plain version (max abs err {k1_err})")
-    k1_ms = event_ms(lambda: concat.concat_rows_words(words, lens, PAD_OUT), 50)
+    k1_events = event_ms(lambda: concat.concat_rows_words(words, lens, PAD_OUT), 50)
     k1_plain = event_ms(lambda: concat.concat_rows_ref(words.view(torch.uint8), lens, PAD_OUT), 20)
-    log(f"[3 K1] concat (128,64,384) words: equal to plain; kernel {k1_ms:.4f} ms, plain torch {k1_plain:.4f} ms")
-    k1_bytes = int(lens_np.sum()) + lens_np.nbytes + BATCH * PAD_OUT
-    kernels["concat"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain, bound_ms=bound_ms(k1_bytes))
+    # device time: five copies of the inputs (110 MB with the rows) in turn, each cold in L2
+    word_copies = [words] + [words.clone() for _ in range(4)]
+    k1_ms = graph_ms(lambda i: concat.concat_rows_words(word_copies[i], lens, PAD_OUT), len(word_copies))
+    nbytes = k1_bytes(lens, 4 * CAPW, PAD_OUT)
+    src = [torch.empty(nbytes // 2, dtype=torch.uint8, device=dev) for _ in range(5)]
+    dst = [torch.empty_like(s) for s in src]
+    copy_ms = graph_ms(lambda i: dst[i].copy_(src[i]), len(src))
+    # the split: K1 with every length 0 (the scan and the zero stores, no
+    # reads) and zero_ of as many rows (the card's store floor)
+    no_lens = torch.zeros_like(lens)
+    k1_zero_ms = graph_ms(lambda i: concat.concat_rows_words(word_copies[i], no_lens, PAD_OUT), len(word_copies))
+    rows = [torch.empty((BATCH, PAD_OUT), dtype=torch.uint8, device=dev) for _ in range(5)]
+    fill_ms = graph_ms(lambda i: rows[i].zero_(), len(rows))
+    del word_copies, src, dst, rows
+    log(f"[3 K1] kernel {k1_ms:.4f} ms by CUDA graph replay (cold inputs), {k1_events:.4f} ms by events around "
+        f"50 wrapper calls (warm inputs, host launch time included); plain torch {k1_plain:.4f} ms; bound "
+        f"{bound_ms(nbytes):.4f} ms for {nbytes} bytes (K1 at {bound_ms(nbytes) / k1_ms * 100:.1f} %); copy floor: "
+        f"copy_ of {nbytes // 2} bytes (as many bytes moved) {copy_ms:.4f} ms "
+        f"({nbytes / copy_ms / 1e9:.3f} TB/s); split: K1 with all lengths 0 {k1_zero_ms:.4f} ms, zero_ of the "
+        f"{BATCH * PAD_OUT}-byte rows {fill_ms:.4f} ms")
+    kernels["concat"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain, bound_ms=bound_ms(nbytes), events_ms=k1_events,
+                             copy_floor_ms=copy_ms)
 
     # ---- 4. K2 block decoder against its plain version ----
     samples = [
@@ -571,6 +680,15 @@ def main() -> int:
     ll = [torch.from_numpy(lens_np[i * BATCH : (i + 1) * BATCH]).to(dev) for i in range(nbat)]
     torch.cuda.synchronize()
     log(f"[5 main] {data.size} bytes = {blocks_np.shape[0]} blocks in {nbat} device batches of {BATCH}")
+    # K1's inputs on the main path: the encoder's first call per profile
+    # (its first batch) hands them to the timing after this phase
+    k1_inputs = {}
+
+    def concat_capturing(pieces, lens, out_cap):
+        k1_inputs.setdefault(profile, (pieces, lens, out_cap))  # `profile`: the loop's, at call time
+        return concat.concat_rows(pieces, lens, out_cap)
+
+    encode_v2.concat_rows = concat_capturing
     zero_counts()
     results, encs = {}, {}
     for profile in ("fast", "dense"):
@@ -624,10 +742,29 @@ def main() -> int:
             else:
                 log("[5 main] fast: native C++ runtime did not build; independent decode skipped")
     paths = {"main": read_counts()}
+    encode_v2.concat_rows = concat.concat_rows
     log(f"[5 main] kernel launches on the main path: {paths['main']}")
     log(f"[5 main] summary {json.dumps(results)}")
     if min(paths["main"]["concat"], paths["main"]["decode_block"]) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {paths['main']}")
+    # K1 on the main path's own inputs, against its plain version, timed as in phase 3
+    main_ms, main_bound = {}, {}
+    for profile, (pieces, lens, out_cap) in k1_inputs.items():
+        if pieces.device != dev:
+            raise AssertionError(f"{profile}: the encoder's first concat ran on {pieces.device}")
+        got = concat.concat_rows(pieces, lens, out_cap)
+        err = int((got.int() - concat.concat_rows_ref(pieces, lens, out_cap).int()).abs().max())
+        if err != 0:
+            raise AssertionError(f"{profile}: K1 differs from its plain version on the main path's inputs ({err})")
+        copies = [pieces] + [pieces.clone() for _ in range(4)]
+        main_ms[profile] = graph_ms(lambda i: concat.concat_rows(copies[i], lens, out_cap), len(copies))
+        main_bound[profile] = bound_ms(k1_bytes(lens, pieces.shape[2], out_cap))
+        log(f"[5 K1] {profile}: the main path's {tuple(pieces.shape)} sections and lengths (row sums "
+            f"{int(lens.sum(1).min())}-{int(lens.sum(1).max())} bytes): equal to plain; kernel {main_ms[profile]:.4f} "
+            f"ms by CUDA graph replay (cold inputs), bound {main_bound[profile]:.4f} ms "
+            f"(K1 at {main_bound[profile] / main_ms[profile] * 100:.1f} %)")
+    del k1_inputs, copies
+    kernels["concat"].update(main_path_ms=main_ms, main_path_bound_ms=main_bound)
 
     # ---- 6. the user API on the card ----
     small = corpus.mixed(3 << 20, seed=5)
@@ -923,7 +1060,7 @@ def main() -> int:
          "launches": paths[info[name][2]][name],
          "launches_by_path": {path: c[name] for path, c in paths.items() if c[name]},
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": "bytes", "library_ms": None, **{x: k[x] for x in ("parse_ms", "move_ms") if x in k}}
+         "bound_by": "bytes", "library_ms": None, **{x: k[x] for x in K_EXTRAS if x in k}}
         for name, k in kernels.items()
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

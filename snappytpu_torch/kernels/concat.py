@@ -35,12 +35,23 @@ def concat_rows_ref(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> t
     return out.view(B, out_cap)
 
 
+def check_aligned(cap: int, out_cap: int, *ptrs: int) -> None:
+    """The CUDA route's contract: the kernel reads its sections and writes
+    its rows as aligned 16-byte words, so cap and out_cap must be multiples
+    of 16 and the data pointers 16-byte aligned.  Raises ValueError if not."""
+    if cap % 16 or out_cap % 16:
+        raise ValueError(f"concat on CUDA needs cap and out_cap that are multiples of 16, got {cap}, {out_cap}")
+    if any(p % 16 for p in ptrs):
+        raise ValueError("concat on CUDA needs 16-byte aligned pieces and output (a storage offset breaks it)")
+
+
 def _launch(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch.Tensor:
     global launches
     from .._build import check, library
 
     B, S, CAP = pieces.shape
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=pieces.device)
+    check_aligned(CAP, out_cap, pieces.data_ptr(), out.data_ptr())
     if B:
         with torch.cuda.device(pieces.device):
             rc = library().snappy_concat_rows(
@@ -56,7 +67,8 @@ def concat_rows(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch
     """(B, S, CAP) uint8 pieces + (B, S) int32 lens -> (B, out_cap) uint8
     where row b is the concatenation of its S pieces' first lens[b, s]
     bytes, zero-padded.  Requires 0 <= lens <= CAP and sum(lens[b]) <=
-    out_cap; the kernel clamps both, so it never writes past out_cap."""
+    out_cap; the kernel clamps both, so it never writes past out_cap.  On
+    CUDA it also requires the alignment of check_aligned."""
     if pieces.dtype != torch.uint8 or pieces.dim() != 3:
         raise ValueError(f"pieces must be (B, S, CAP) uint8, got {tuple(pieces.shape)} {pieces.dtype}")
     if lens.shape != pieces.shape[:2] or lens.device != pieces.device:

@@ -80,3 +80,43 @@ def test_cpu_wrapper_rejects_contract_violations(bad):
     lens = {"negative": [-1, 0, 0, 0], "over_cap": [65, 0, 0, 0], "over_row": [64, 64, 64, 64]}[bad]
     with pytest.raises(ValueError):
         concat.concat_rows(pieces, torch.tensor([lens], dtype=torch.int32), 192)
+
+
+def _alignment_case(case, device):
+    """(pieces, out_cap) breaking the CUDA route's alignment contract in one
+    way: cap or out_cap not a multiple of 16, or pieces at a storage offset
+    of one byte; "aligned" breaks nothing."""
+    base = torch.zeros(2 * 4 * 64 + 16, dtype=torch.uint8, device=device)
+    pieces = base[: 2 * 4 * 64].view(2, 4, 64)
+    if case == "cap":
+        pieces = base[: 2 * 4 * 60].view(2, 4, 60)
+    elif case == "offset":
+        pieces = base[1 : 1 + 2 * 4 * 64].view(2, 4, 64)
+    return pieces, 200 if case == "out_cap" else 256
+
+
+@pytest.mark.parametrize("case", ["cap", "out_cap", "offset", "aligned"])
+def test_alignment_predicate(case):
+    """The predicate the CUDA route runs before every launch, on CPU tensors'
+    pointers: ValueError exactly where the contract breaks."""
+    pieces, out_cap = _alignment_case(case, "cpu")
+    out = torch.empty((2, out_cap), dtype=torch.uint8)
+    if case == "aligned":
+        concat.check_aligned(pieces.shape[2], out_cap, pieces.data_ptr(), out.data_ptr())
+    else:
+        with pytest.raises(ValueError, match="16"):
+            concat.check_aligned(pieces.shape[2], out_cap, pieces.data_ptr(), out.data_ptr())
+    # the CPU route keeps the plain version, aligned or not
+    got = concat.concat_rows(pieces, torch.full((2, 4), 3, dtype=torch.int32), out_cap)
+    np.testing.assert_array_equal(got.numpy(), concat.concat_rows_ref(pieces, torch.full((2, 4), 3), out_cap).numpy())
+
+
+@pytest.mark.parametrize("case", ["cap", "out_cap", "offset"])
+def test_cuda_route_raises_outside_alignment(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pieces, out_cap = _alignment_case(case, "cuda")
+    before = concat.launches
+    with pytest.raises(ValueError, match="16"):
+        concat.concat_rows(pieces, torch.ones((2, 4), dtype=torch.int32, device="cuda"), out_cap)
+    assert concat.launches == before
