@@ -48,7 +48,22 @@ set to 0 just before it and read just after:
         against their plain versions, then dec_profile's four decoders,
         T2's variants and T3's modes on four 128-block sets of text and
         mixed, and T1's 16 probes at N = 200,000, timed
-  13    report
+  14    the port's benchmark: the runner (snappytpu_torch.bench.run) in
+        process on the 32 MB mixed corpus (3 reps, fast headline, dense
+        companion), its ratios held to phase 5's; then
+        `python -m snappytpu_torch.bench.run` once as a subprocess (1 rep),
+        its last stdout line parsed and its keys checked
+  15    the mesh path: make_mesh(1) on cuda:0; the config-4 check (100 MB of
+        text through encode_mesh/decode_mesh, dense, equal to api.compress on
+        the card and round-tripped); the same encode under an NCCL process
+        group of world size 1 made by init_distributed (the same rows);
+        make_mesh past the card count raises; two manifest shards with the
+        default encoder on the card, assembled, equal to api.compress;
+        entry()'s function on the card equal to its CPU result;
+        dryrun_multichip(1); the mesh sweep at two sizes; then, outside
+        the path's counts, config 4's encode and decode taken apart into
+        copies in, device calls and copies out (CUDA events)
+  13    report (run last)
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line with each kernel's launches on its path (and on every
@@ -511,6 +526,194 @@ def profiling_path(dev) -> tuple[dict, dict]:
         "probe_scalar": dict(err=t1_err, ms=t1_ms, plain_ms=t1_plain, bound_ms=bound_ms(t1_bytes)),
     }
     return kernels, launches
+
+
+def bench_path(dev, kind: str, results: dict) -> dict:
+    """Phase 14: the runner's measuring function in process (32 MB mixed,
+    3 reps, fast headline, dense companion) with the launch counts at 0,
+    its ratios held to phase 5's; then the runner once as a subprocess.
+    Returns the launch counts of the path."""
+    from snappytpu_torch.bench import run as bench_run
+
+    zero_counts()
+    bench = bench_run.measure("mixed", MAIN_MB, 3, dense=False, device=dev)
+    launches = read_counts()
+    log(f"[14 bench] {json.dumps(bench)}")
+    log(f"[14 bench] kernel launches on the path: {launches}")
+    if min(launches["concat"], launches["decode_block"]) <= 0:
+        raise AssertionError(f"a kernel of the bench path never launched: {launches}")
+    want = (round(results["fast"]["ratio"], 4), round(results["dense"]["ratio"], 4))
+    if (bench["ratio"], bench["companion_ratio"]) != want:
+        raise AssertionError(f"the runner's ratios {bench['ratio']}, {bench['companion_ratio']} differ from "
+                             f"phase 5's {want}")
+    if (bench["backend"], bench["device_name"]) != ("cuda", kind):
+        raise AssertionError(f"the runner ran on {bench['backend']} {bench['device_name']}")
+    f, d = results["fast"], results["dense"]
+    log(f"[14 bench] runner (best of 3): encode {bench['encode_gbps'] * 1e3:.1f} MB/s fast, "
+        f"{bench['companion_encode_gbps'] * 1e3:.1f} dense, decode {bench['decode_gbps'] * 1e3:.1f} MB/s, combined "
+        f"{bench['value'] * 1e3:.1f} MB/s; phase 5 (one pass): encode {f['encode_MBps']:.1f} fast, "
+        f"{d['encode_MBps']:.1f} dense, decode {f['decode_MBps']:.1f}, combined {f['combined_MBps']:.1f}; "
+        f"ratios equal to phase 5's ({want[0]}, {want[1]})")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SNAPPYTPU_BENCH_")}
+    env["SNAPPYTPU_BENCH_REPS"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.run(["timeout", "-k", "10", "300", sys.executable, "-m", "snappytpu_torch.bench.run"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=330)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m snappytpu_torch.bench.run exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if tuple(line) != bench_run.KEYS or (line["backend"], line["device_name"]) != ("cuda", kind) \
+            or (line["ratio"], line["companion_ratio"]) != want:
+        raise AssertionError(f"the runner's line is not as expected: {line}")
+    log(f"[14 bench] python -m snappytpu_torch.bench.run (1 rep, {time.perf_counter() - t0:.1f} s): its last line "
+        f"has the {len(line)} keys, backend cuda, the card's name and phase 5's ratios: {json.dumps(line)}")
+    return launches
+
+
+def mesh_split(dev, mesh, blocks, lens, comp, totals, e_wall: float) -> None:
+    """Phase 15's config-4 calls taken apart, after the path's launch counts
+    are read (so these launches count on no path): for encode_mesh and
+    decode_mesh, the copies in, the device calls and the copies out of their
+    13 calls, each timed by CUDA events around all of its kind, beside the
+    wall time of the whole mesh call (e_wall ms for the encode, from the
+    config-4 check); the rest is host work (padding, numpy slicing).  The
+    outputs are held to the mesh's."""
+    from snappytpu_torch import api
+    from snappytpu_torch.kernels.decode_vm import decode_blocks_vm
+    from snappytpu_torch.kernels.encode_v2 import encode_blocks_v2
+    from snappytpu_torch.mesh import sharding
+
+    def parts(fn, arrays):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        staged = [[torch.from_numpy(a[s : s + api.DEVICE_BATCH]).to(dev) for a in arrays]
+                  for s in range(0, arrays[0].shape[0], api.DEVICE_BATCH)]
+        ev[1].record()
+        outs = [fn(*args) for args in staged]
+        ev[2].record()
+        host = [[o.cpu().numpy() for o in out] for out in outs]
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)], [np.concatenate(x) for x in zip(*host)]
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    (e_in, e_calls, e_out), (c, t) = parts(lambda b, n: encode_blocks_v2(b, n, dense=True), (blocks, lens))
+    if not (np.array_equal(c, comp) and np.array_equal(t, totals)):
+        raise AssertionError("the timed encode calls differ from encode_mesh's rows")
+    log(f"[15 split] encode_mesh of config 4: wall {e_wall:.1f} ms = copies in {e_in:.1f} + encoder calls "
+        f"{e_calls:.1f} + copies out {e_out:.1f} + host rest {e_wall - e_in - e_calls - e_out:.1f} ms (CUDA events; "
+        f"the calls' wall taken from the config-4 check)")
+    for turn in range(2):
+        d_wall = wall(lambda: sharding.decode_mesh(mesh, comp, totals, lens))
+        (d_in, d_calls, d_out), (out, ok) = parts(decode_blocks_vm, (comp, totals, lens))
+        if not (ok.all() and np.array_equal(out, blocks)):
+            raise AssertionError("the timed decode calls do not give the input back")
+        log(f"[15 split] decode_mesh of config 4, turn {turn}: wall {d_wall:.1f} ms; its parts apart: copies in "
+            f"{d_in:.1f} + K2 calls {d_calls:.1f} + copies out {d_out:.1f} = {d_in + d_calls + d_out:.1f} ms, "
+            f"host rest {d_wall - d_in - d_calls - d_out:.1f} ms")
+
+
+def mesh_path(dev) -> dict:
+    """Phase 15: the block-parallel path on the card with the launch counts
+    at 0 (see the module docstring).  Returns the launch counts."""
+    import socket
+
+    import torch.distributed as dist
+
+    from snappytpu_torch import api, entry
+    from snappytpu_torch.bench import corpus, sweep
+    from snappytpu_torch.mesh import sharding
+    from snappytpu_torch.stream import manifest
+    from snappytpu_torch.tools import config4_mesh
+
+    zero_counts()
+    mesh = sharding.make_mesh(1)
+    if mesh != [dev]:
+        raise AssertionError(f"make_mesh(1) gave {mesh}")
+    c4 = config4_mesh.check(100, 1, device="cuda", log=log)
+    blocks, lens = c4["input"]
+    comp, totals = c4["rows"]
+
+    # the same encode under an NCCL process group of world size 1
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist_env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1")
+    saved = {k: os.environ.get(k) for k in dist_env}
+    os.environ.update(dist_env)
+    try:
+        if sharding.init_distributed("cuda") != (0, 1) or dist.get_backend() != "nccl":
+            raise AssertionError("init_distributed did not make an NCCL group of world size 1")
+        nccl_s = []  # the first call also makes the NCCL communicator
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comp_d, totals_d = sharding.encode_mesh(mesh, blocks, lens, profile="dense")
+            nccl_s.append(time.perf_counter() - t0)
+            if not (np.array_equal(comp_d, comp) and np.array_equal(totals_d, totals)):
+                raise AssertionError("encode_mesh under NCCL (world size 1) differs from the plain mesh")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[15 mesh] encode_mesh under an NCCL group of world size 1 (all_gather of the rows): the same "
+        f"{len(totals)} rows and totals, twice ({nccl_s[0] * 1e3:.1f} ms, the NCCL communicator made on the "
+        f"first all_gather; then {nccl_s[1] * 1e3:.1f} ms; the plain mesh {c4['encode_s'] * 1e3:.1f} ms)")
+    n_bad = torch.cuda.device_count() + 1
+    try:
+        sharding.make_mesh(n_bad)
+    except RuntimeError as e:
+        log(f"[15 mesh] make_mesh({n_bad}) raises: {e}")
+    else:
+        raise AssertionError(f"make_mesh({n_bad}) did not raise")
+
+    data = corpus.mixed(4 * (1 << 20) + 777, seed=77)
+    with tempfile.TemporaryDirectory() as tmp:
+        for s in range(2):
+            manifest.encode_shard(np.frombuffer(data, np.uint8), tmp, s, 2, device=dev)
+        manifest.assemble(tmp, 2, os.path.join(tmp, "full.snappy"))
+        with open(os.path.join(tmp, "full.snappy"), "rb") as f:
+            if f.read() != api.compress(data, "dense", device=dev):
+                raise AssertionError("the manifest-assembled stream differs from api.compress")
+    log(f"[15 mesh] two manifest shards of {len(data)} bytes, default encoder on the card, assembled: equal to "
+        f"api.compress")
+
+    fn, args = entry.entry()
+    if any(a.device != dev for a in args):
+        raise AssertionError(f"entry() put its arguments on {[a.device for a in args]}")
+    got = [t.cpu() for t in fn(*args)]
+    cfn, cargs = entry.entry("cpu")
+    want = cfn(*cargs)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("entry()'s function on the card differs from its CPU result")
+    log(f"[15 mesh] entry(): encode of its two example blocks on the card equals the CPU result "
+        f"(totals {got[1].tolist()})")
+    entry.dryrun_multichip(1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = sweep.run_sweep(tmp, sizes=[100_000, 1_000_000], reps=2, mesh=True, device="cuda")
+        names = sorted(os.listdir(tmp))
+    for r in rows:
+        log(f"[15 sweep] mesh1 dense {r.phase} {r.input_size} -> {r.output_size} B: {r.time_taken * 1e3:.3f} ms, "
+            f"{r.speed_mbps:.1f} MB/s")
+    log(f"[15 sweep] wrote {names}")
+    launches = read_counts()
+    log(f"[15 mesh] kernel launches on the path: {launches}")
+    if min(launches["concat"], launches["decode_block"]) <= 0:
+        raise AssertionError(f"a kernel of the mesh path never launched: {launches}")
+    mesh_split(dev, mesh, blocks, lens, comp, totals, c4["encode_s"] * 1e3)
+    return launches
 
 
 def main() -> int:
@@ -1035,6 +1238,16 @@ def main() -> int:
     prof_kernels, paths["profiling"] = profiling_path(dev)
     kernels.update(prof_kernels)
     log(f"[12 profiling] phase time {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. the port's benchmark ----
+    t0 = time.perf_counter()
+    paths["bench"] = bench_path(dev, kind, results)
+    log(f"[14 bench] phase time {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. the mesh path ----
+    t0 = time.perf_counter()
+    paths["mesh"] = mesh_path(dev)
+    log(f"[15 mesh] phase time {time.perf_counter() - t0:.1f} s")
 
     # ---- 13. report ----
     info = {  # name -> (source, TPU kernel it replaces, the path it runs on)

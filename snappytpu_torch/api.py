@@ -33,10 +33,17 @@ from .kernels.encode_v2 import encode_blocks_v2
 from .model.decode import CorruptError, decode_ops
 from .stream import framing
 
-_MAX_DEVICE_BATCH = 128  # blocks per device call (8 MiB input per call)
-_WINDOWED_BATCH = 64     # chunks per decode_stream_vm call (~4.6 MB comp)
+DEVICE_BATCH = 128    # blocks per device call (8 MiB input; the encoder's peak memory is per call)
+_WINDOWED_BATCH = 64  # chunks per decode_stream_vm call (~4.6 MB comp)
 
 host_fallbacks = 0  # unsplittable streams the windowed decoder refused, decoded on the host
+
+
+class CapacityError(RuntimeError, ValueError):
+    """The encoder poisoned a block's total (-1): its emission-capacity guard
+    fired.  Unreachable for legal geometry, but never emit a truncated
+    stream.  The JAX package raises RuntimeError from its api and ValueError
+    from its mesh; this is both."""
 
 
 def encode_blocks(blocks, lens, profile="dense"):
@@ -49,21 +56,55 @@ def _as_u8(data) -> np.ndarray:
     return np.ascontiguousarray(data, dtype=np.uint8)
 
 
+def launch_batches(fn, arrays, device, first: int = 0) -> list:
+    """Copy host block-major `arrays` to `device`, then launch fn on each run
+    of at most DEVICE_BATCH blocks without waiting for it -> [(first +
+    offset, fn's outputs)].  Every input is copied before the first launch:
+    a copy from pageable memory waits for its card's queue."""
+    staged = [(s, [torch.from_numpy(a[s : s + DEVICE_BATCH]).to(device) for a in arrays])
+              for s in range(0, arrays[0].shape[0], DEVICE_BATCH)]
+    return [(first + s, fn(*args)) for s, args in staged]
+
+
+def fetch_batches(calls, bufs: list) -> list:
+    """Copy the outputs of launch_batches' calls into the host arrays `bufs`
+    at their offsets; returns bufs."""
+    for start, outs in calls:
+        for buf, out in zip(bufs, outs):
+            buf[start : start + out.shape[0]] = out.cpu().numpy()
+    return bufs
+
+
+def check_totals(totals: np.ndarray, first: int = 0) -> None:
+    """CapacityError naming every block (first + index) with a negative total."""
+    if (totals < 0).any():
+        bad = first + np.nonzero(totals < 0)[0]
+        raise CapacityError(
+            f"encoder capacity overflow: block(s) {bad.tolist()} exceeded the emission capacity bound; "
+            f"incompressible data this adversarial must be stored raw"
+        )
+
+
+def encode_rows(blocks: np.ndarray, lens: np.ndarray, profile: str = "dense", *, device, first: int = 0):
+    """Encode (B, BS) host blocks on `device` in calls of at most DEVICE_BATCH
+    blocks -> host ((B, PAD_OUT) uint8, (B,) int32).  CapacityError on a
+    poisoned block, named as first + its index."""
+    B = blocks.shape[0]
+    comp, totals = fetch_batches(
+        launch_batches(lambda b, n: encode_blocks(b, n, profile), (blocks, lens), device),
+        [np.empty((B, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8), np.empty(B, np.int32)],
+    )
+    check_totals(totals, first)
+    return comp, totals
+
+
 def encode_array_pieces(arr: np.ndarray, profile: str, *, device):
     """Encode a byte array on `device`, yielding compacted wire pieces (no
     preamble) one device batch at a time."""
     blocks, lens = framing.pack_blocks(arr)
-    for start in range(0, blocks.shape[0], _MAX_DEVICE_BATCH):
-        bb = torch.from_numpy(blocks[start : start + _MAX_DEVICE_BATCH]).to(device)
-        bl = torch.from_numpy(lens[start : start + _MAX_DEVICE_BATCH]).to(device)
-        comp, totals = encode_blocks(bb, bl, profile)
-        comp, totals = comp.cpu().numpy(), totals.cpu().numpy()
-        if (totals < 0).any():
-            # the emission-capacity guard poisoned a block: unreachable for
-            # legal geometry, but never emit a truncated stream
-            raise RuntimeError(
-                f"encoder capacity overflow in block(s) {(start + np.nonzero(totals < 0)[0]).tolist()}"
-            )
+    for start in range(0, blocks.shape[0], DEVICE_BATCH):
+        stop = start + DEVICE_BATCH
+        comp, totals = encode_rows(blocks[start:stop], lens[start:stop], profile, device=device, first=start)
         if cpu.available:
             yield cpu.compact(comp, totals)
         else:
@@ -150,8 +191,8 @@ def decompress(data: bytes | np.ndarray, *, device) -> bytes:
         padded, comp_lens = framing.pad_chunks(chunks)
     out_lens = np.asarray(out_lens, np.int32)
     pieces = []
-    for start in range(0, padded.shape[0], _MAX_DEVICE_BATCH):
-        rows, cl, ol = (a[start : start + _MAX_DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
+    for start in range(0, padded.shape[0], DEVICE_BATCH):
+        rows, cl, ol = (a[start : start + DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
         if cpu.available:  # host-built tapes, the device only moves bytes
             out, ok = decode_blocks_tape(rows, cl, ol, device=device)
         else:

@@ -7,12 +7,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from snappytpu import api as jax_api
 from snappytpu.bench import corpus
 from snappytpu.format.varint import encode_varint
 from snappytpu.stream import framing
 from snappytpu_torch import api, cpu
+from snappytpu_torch.format import constants as C
 from snappytpu_torch.model.decode import CorruptError  # the port's own: api raises it
 
 DATA = {
@@ -100,6 +102,31 @@ def test_capacity_poison_raises(monkeypatch):
     monkeypatch.setattr(api, "encode_blocks", poisoned)
     with pytest.raises(RuntimeError, match="capacity overflow"):
         api.compress(DATA["text_5"], device="cpu")
+
+
+def test_encode_rows_batches_and_names_poisoned_blocks(monkeypatch):
+    """api.encode_rows, the one batched encode of the api, the manifests'
+    default encoder and (through launch/fetch_batches) the mesh: calls of at
+    most 128 blocks in block order; a poisoned total raises CapacityError,
+    which is the RuntimeError of the JAX api and the ValueError of its mesh,
+    naming the block as first + its index."""
+    calls = []
+
+    def fake(b, n, profile="dense"):
+        calls.append((b.shape[0], int(n[0]), profile))
+        comp = torch.zeros((b.shape[0], C.MAX_COMPRESSED_BLOCK_SIZE), dtype=torch.uint8)
+        comp[:, 0] = (n % 251).to(torch.uint8)
+        return comp, torch.where(n == 290, -1, n)
+
+    monkeypatch.setattr(api, "encode_blocks", fake)
+    lens = np.arange(300, dtype=np.int32)
+    comp, totals = api.encode_rows(np.zeros((280, 8), np.uint8), lens[:280], "fast", device="cpu")
+    assert calls == [(128, 0, "fast"), (128, 128, "fast"), (24, 256, "fast")]
+    np.testing.assert_array_equal(totals, lens[:280])
+    np.testing.assert_array_equal(comp[:, 0], lens[:280] % 251)
+    with pytest.raises(api.CapacityError, match=r"block\(s\) \[1290\] exceeded") as e:
+        api.encode_rows(np.zeros((300, 8), np.uint8), lens, device="cpu", first=1000)
+    assert isinstance(e.value, RuntimeError) and isinstance(e.value, ValueError)
 
 
 def test_routes_without_the_native_runtime(monkeypatch):

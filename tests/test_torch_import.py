@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports and runs without JAX (the GPU
 host has none) and without the JAX package snappytpu, whose JAX-free layers
-it keeps as its own copies."""
+it keeps as its own copies.  The scan covers the package, chip_smoke.py and
+the distributed test's worker process."""
 
 import ast
 import os
@@ -17,14 +18,15 @@ import sys
 import numpy as np
 import torch
 import snappytpu_torch
-from snappytpu_torch import _build, api, cli, cpu, format, model, profiling
-from snappytpu_torch.bench import corpus, metrics
+from snappytpu_torch import _build, api, cli, cpu, entry, format, mesh, model, profiling
+from snappytpu_torch.bench import corpus, metrics, run, sweep
 from snappytpu_torch.format import constants, varint
 from snappytpu_torch.format.varint import encode_varint
 from snappytpu_torch.kernels import concat, decode_tape, decode_vm, decode_vm2, decode_vm4, encode_v2
 from snappytpu_torch.model import decode, encode
-from snappytpu_torch.stream import filecodec, framing
-from snappytpu_torch.tools import _staged, dec_anatomy, dec_profile, probe_scalar, tape_probe
+from snappytpu_torch.mesh import sharding
+from snappytpu_torch.stream import filecodec, framing, manifest
+from snappytpu_torch.tools import _staged, config4_mesh, dec_anatomy, dec_profile, probe_scalar, tape_probe
 
 data = corpus.mixed(70_000, seed=3)
 for profile in ("fast", "dense"):
@@ -38,6 +40,13 @@ assert api.decompress(stream, device="cpu") == data
 assert cpu.available
 assert cpu.decompress(cpu.compress(data)) == data
 assert model.decompress(model.compress(data[:3000])) == data[:3000]
+# the mesh, the entry points and the benchmark runner on the CPU
+m = mesh.make_mesh(2, "cpu")
+blocks, lens = framing.pack_blocks(np.frombuffer(data, np.uint8))
+comp, totals = mesh.encode_mesh(m, blocks, lens, "fast")
+assert encode_varint(len(data)) + cpu.compact(comp, totals) == api.compress(data, "fast", device="cpu")
+entry.dryrun_multichip(2, device="cpu")
+assert run.measure("mixed", 1, 1, device="cpu")["backend"] == "cpu"
 # the profiling tools' plain routes
 p = probe_scalar.Probe("smem_chase")
 tile, _ = probe_scalar.run(p, torch.from_numpy(probe_scalar.inputs(p)), 50)
@@ -66,6 +75,8 @@ def test_build_is_lazy():
     on the CPU."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     probe = ("import snappytpu_torch.kernels, snappytpu_torch._build as b, sys;"
+             "import snappytpu_torch.mesh, snappytpu_torch.entry, snappytpu_torch.bench.run, snappytpu_torch.bench.sweep;"
+             "import snappytpu_torch.stream.manifest, snappytpu_torch.tools.config4_mesh;"
              "import snappytpu_torch.tools.dec_profile, snappytpu_torch.tools.dec_anatomy;"
              "import snappytpu_torch.tools.tape_probe, snappytpu_torch.tools.probe_scalar;"
              "assert b.library.cache_info().currsize == 0;"
@@ -77,7 +88,8 @@ def test_build_is_lazy():
 
 def _port_sources():
     root = Path(ROOT)
-    return sorted((root / "snappytpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    return sorted((root / "snappytpu_torch").rglob("*.py")) + [root / "chip_smoke.py",
+                                                               root / "tests" / "torch_distributed_worker.py"]
 
 
 def _imports_of_snappytpu(path: Path):
