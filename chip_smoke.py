@@ -77,7 +77,10 @@ CUDA.  Needs no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import glob
+import io
 import json
 import os
 import subprocess
@@ -93,9 +96,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 BATCH = 128
 MAIN_MB = 32
 WIN_MB = 8  # the windowed path's stream: 128+ chunks, so two K4 calls of 64
+BIG_MB = 128  # bigfile_bench's input in phase 16: the tool's default
 # a kernel's measurements beyond the contract's keys: K4's two launches; K1's
-# time by events around wrapper calls, the copy floor and its main-path times
-K_EXTRAS = ("parse_ms", "move_ms", "events_ms", "copy_floor_ms", "main_path_ms", "main_path_bound_ms")
+# time by events around wrapper calls, the copy floor, its main-path times and
+# its times at the emit's other section counts (phase 16)
+K_EXTRAS = ("parse_ms", "move_ms", "events_ms", "copy_floor_ms", "main_path_ms", "main_path_bound_ms",
+            "sections_ms", "sections_bound_ms")
 
 
 def log(msg: str) -> None:
@@ -716,6 +722,123 @@ def mesh_path(dev) -> dict:
     return launches
 
 
+class _Tee(io.TextIOBase):
+    """A stdout that also keeps what is written to it."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s: str) -> int:
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def run_tool(name: str, argv: list) -> list:
+    """A tool's main(argv) in process (errors propagate) -> its stdout lines."""
+    import importlib
+
+    mod = importlib.import_module(f"snappytpu_torch.tools.{name}")
+    log(f"[16 {name}] main({argv})")
+    t0 = time.perf_counter()
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = mod.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{name}.main returned {rc}")
+    log(f"[16 {name}] {time.perf_counter() - t0:.1f} s")
+    return tee.buf.getvalue().splitlines()
+
+
+def encoder_tools_path(dev) -> tuple[dict, dict]:
+    """Phase 16: K1 at the emit's other section counts, then the encoder
+    tools in process with the launch counts at 0 (see the module docstring).
+    Returns (K1's measurements at those counts, launch counts of the path)."""
+    import re
+
+    from snappytpu_torch.kernels import concat, encode_v2
+    from snappytpu_torch.tools import _staged
+
+    # K1's inputs at nsec 16, 32 and 128, from one fast and one dense
+    # 128-block encode each; the rows equal the default nsec's (wire bytes
+    # do not depend on the section count)
+    b, n = _staged.encoder_sets(BATCH, 1, dev)[0]
+    captured, key = {}, [None]
+
+    def concat_capturing(pieces, lens, out_cap):
+        captured.setdefault(key[0], (pieces, lens, out_cap))
+        return concat.concat_rows(pieces, lens, out_cap)
+
+    encode_v2.concat_rows = concat_capturing
+    try:
+        for profile in ("fast", "dense"):
+            dense = profile == "dense"
+            key[0] = f"{profile}:64"
+            want = encode_v2.encode_block_core(b, n, dense)
+            for nsec in (16, 32, 128):
+                key[0] = f"{profile}:{nsec}"
+                got = encode_v2.encode_block_core(b, n, dense, nsec=nsec)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{profile}: the rows at nsec {nsec} differ from the rows at 64")
+    finally:
+        encode_v2.concat_rows = concat.concat_rows
+    del captured["fast:64"], captured["dense:64"]
+    k1 = dict(sections_ms={}, sections_bound_ms={})
+    for name, (pieces, lens, out_cap) in captured.items():
+        S = int(name.split(":")[1])
+        if tuple(pieces.shape[:2]) != (BATCH, S) or pieces.device != dev:
+            raise AssertionError(f"{name}: K1 was handed {tuple(pieces.shape)} on {pieces.device}")
+        got = concat.concat_rows(pieces, lens, out_cap)
+        err = int((got.int() - concat.concat_rows_ref(pieces, lens, out_cap).int()).abs().max())
+        if err != 0:
+            raise AssertionError(f"{name}: K1 differs from its plain version at {S} sections ({err})")
+        copies = [pieces] + [pieces.clone() for _ in range(4)]
+        ms = graph_ms(lambda i: concat.concat_rows(copies[i], lens, out_cap), len(copies))
+        bound = bound_ms(k1_bytes(lens, pieces.shape[2], out_cap))
+        k1["sections_ms"][name], k1["sections_bound_ms"][name] = ms, bound
+        log(f"[16 K1] {name}: the encoder's {tuple(pieces.shape)} sections and lengths (row sums "
+            f"{int(lens.sum(1).min())}-{int(lens.sum(1).max())} bytes): equal to plain; kernel {ms:.4f} ms by CUDA "
+            f"graph replay (cold inputs), bound {bound:.4f} ms (K1 at {bound / ms * 100:.1f} %)")
+    del captured, copies
+    log("[16 K1] rows at nsec 16, 32 and 128 equal the rows at 64, both profiles")
+
+    zero_counts()
+    run_tool("stage_profile", [])
+    lines = run_tool("enc_profile", ["--cfgs", ",".join(f"{p}:{s}" for p in ("fast", "dense")
+                                                        for s in (16, 32, 64, 128))])
+    found = [re.search(r"encode (fast|dense): *(\d+) .* ratio ([0-9.]+)  \((\d+) bytes\)$", ln) for ln in lines]
+    found = [m.groups() for m in found if m]
+    for profile in ("fast", "dense"):
+        got = {(r, nb) for p, _s, r, nb in found if p == profile}
+        if len([f for f in found if f[0] == profile]) != 4 or len(got) != 1:
+            raise AssertionError(f"enc_profile's {profile} ratio is not one across nsec 16-128: {found}")
+    log(f"[16 enc_profile] ratio and bytes equal across nsec 16, 32, 64, 128: "
+        + ", ".join(f"{p} {r} ({nb} bytes)" for p, s, r, nb in found if s == "64"))
+    run_tool("enc_stage_fast", [])
+    run_tool("enc_ablate", [])
+    with tempfile.TemporaryDirectory() as tmp:
+        run_tool("enc_sizes", ["--out", tmp])
+        run_tool("enc_variants", ["--configs", "base16,k12samp,k10samp"])
+        run_tool("dist_bench", ["--out", tmp, "--cpu-reps", "20", "--dev-reps", "5"])
+        for path in sorted(glob.glob(os.path.join(tmp, "*_dist.csv"))):
+            with open(path, newline="") as f:
+                rows = list(csv.DictReader(f))
+            size = "input_size" if "/compression" in path else "output_size"
+            med = {s: np.median([float(r["time_taken"]) for r in rows if r[size] == s])
+                   for s in dict.fromkeys(r[size] for r in rows)}
+            log(f"[16 dist_bench] {os.path.basename(path)}, median ms a run: "
+                + ", ".join(f"{s} B {m * 1e3:.3f}" for s, m in med.items()))
+        run_tool("bigfile_bench", ["--out", tmp, "--mb", str(BIG_MB)])
+        log(f"[16 tools] wrote {sorted(os.listdir(tmp))}")
+    launches = read_counts()
+    log(f"[16 encoder_tools] kernel launches on the path: {launches}")
+    if min(launches["concat"], launches["decode_block"]) <= 0:
+        raise AssertionError(f"a kernel of the encoder tools' path never launched: {launches}")
+    return k1, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -1248,6 +1371,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["mesh"] = mesh_path(dev)
     log(f"[15 mesh] phase time {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16. the encoder tools ----
+    t0 = time.perf_counter()
+    k1_sections, paths["encoder_tools"] = encoder_tools_path(dev)
+    kernels["concat"].update(sections_ms=k1_sections["sections_ms"],
+                             sections_bound_ms=k1_sections["sections_bound_ms"])
+    log(f"[16 encoder_tools] phase time {time.perf_counter() - t0:.1f} s")
 
     # ---- 13. report ----
     info = {  # name -> (source, TPU kernel it replaces, the path it runs on)

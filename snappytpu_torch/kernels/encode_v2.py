@@ -28,6 +28,8 @@ array code is plain PyTorch; only the concat is a kernel.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..format import constants as C
@@ -168,50 +170,66 @@ def _lex_order(keys):
     return perm
 
 
-def _find_matches(blocks_u8: torch.Tensor, n: torch.Tensor, dense: bool = True):
-    """Per-position (match_len, dist >= 1); len 0 where no match.  Tier A,
-    tier B (dense: all 16 key words at byte resolution; fast: 6 sampled key
-    words at stride 4), then the run tiers — the JAX `_find_matches` with
-    its default knobs."""
-    B = blocks_u8.shape[0]
-    dev = blocks_u8.device
-    pos = _pos(B, BS, dev)
+class _MatchWords(NamedTuple):
+    """What the match tiers share: the lengths, the positions, the 16
+    carried key words at every position (kws[j] starts 4j bytes later) and
+    the first word with the tail positions forced to the top."""
+
+    n: torch.Tensor
+    pos: torch.Tensor
+    kws: tuple
+    w0p: torch.Tensor
+
+
+def _match_words(blocks_u8: torch.Tensor, n: torch.Tensor) -> _MatchWords:
+    pos = _pos(blocks_u8.shape[0], BS, blocks_u8.device)
     w = _words(blocks_u8)
     kws = tuple(_shift_words(w, 4 * j) if j else w for j in range(KW))
     tail = pos > (n - G)[:, None]
-    w0p = torch.where(tail, 0xFFFFFFFF, kws[0])
+    return _MatchWords(n, pos, kws, torch.where(tail, 0xFFFFFFFF, kws[0]))
 
-    def finish(blen, bcand, pos_sub):
-        mlen = torch.minimum(blen, torch.clamp_min(n[:, None] - pos_sub, 0))
-        dist = torch.where(mlen >= G, pos_sub - bcand, 0)
-        return torch.where(mlen >= G, mlen, 0), dist
 
-    def sort_back(order, blen, bcand, pos_sub):
-        # order[:, i] is the (sub)position index of sorted slot i; its
-        # inverse brings each slot's best match back to position order
-        inv = torch.empty_like(order).scatter_(
-            1, order, torch.arange(order.shape[1], device=dev).expand_as(order)
-        )
-        return finish(torch.gather(blen, 1, inv), torch.gather(bcand, 1, inv), pos_sub)
+def _sort_back(order, blen, bcand, pos_sub, n):
+    """A sorted tier's best matches back in position order, clipped to n:
+    order[:, i] is the (sub)position index of sorted slot i, and its inverse
+    (one scatter) brings each slot's (len, cand) back."""
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(order.shape[1], device=order.device).expand_as(order)
+    )
+    blen, bcand = torch.gather(blen, 1, inv), torch.gather(bcand, 1, inv)
+    mlen = torch.minimum(blen, torch.clamp_min(n[:, None] - pos_sub, 0))
+    dist = torch.where(mlen >= G, pos_sub - bcand, 0)
+    return torch.where(mlen >= G, mlen, 0), dist
 
-    # tier A: one stable key, so each 4-gram group is in position order
-    orderA = torch.sort(w0p, dim=1, stable=True).indices
-    apos = orderA.to(_I32)
-    aks = (torch.gather(w0p, 1, orderA),) + tuple(torch.gather(kws[j], 1, orderA) for j in (1, 2, 3))
-    a_ranks = (1, 2, 3, 4) if dense else (1, 2, 3, 4, 5, 6)
-    lenA, candA = _tier_best(apos, aks, pred_ranks=a_ranks)
-    tiers = [sort_back(orderA, lenA, candA, pos)]
 
-    # tier B: suffix adjacency; fast samples every 4th position
+def _tier_a(mw: _MatchWords, dense: bool, a_ranks=None, a_words: int = 4):
+    """Tier A: one stable key, so each 4-gram group is in position order and
+    its sorted predecessors are the nearest previous occurrences."""
+    orderA = torch.sort(mw.w0p, dim=1, stable=True).indices
+    aks = (torch.gather(mw.w0p, 1, orderA),) + tuple(torch.gather(kw, 1, orderA) for kw in mw.kws[1:a_words])
+    if a_ranks is None:
+        a_ranks = (1, 2, 3, 4) if dense else (1, 2, 3, 4, 5, 6)
+    lenA, candA = _tier_best(orderA.to(_I32), aks, pred_ranks=tuple(a_ranks))
+    return _sort_back(orderA, lenA, candA, mw.pos, mw.n)
+
+
+def _tier_b(mw: _MatchWords, dense: bool, b_ranks=None, dense_keys=None):
+    """Tier B: suffix adjacency over the sorted key words; fast samples
+    every 4th position."""
+    B = mw.pos.shape[0]
     stride = 1 if dense else 4
     sub = (lambda x: x) if stride == 1 else (lambda x: x[:, ::stride])
-    key_ids = tuple(range(KW)) if dense else (0, 1, 4, 8, 12, 15)
-    kw_eff = (w0p,) + kws[1:]
+    if dense:
+        key_ids = tuple(range(KW)) if dense_keys is None else tuple(dense_keys)
+    else:
+        key_ids = (0, 1, 4, 8, 12, 15)
+    kw_eff = (mw.w0p,) + mw.kws[1:]
     orderB = _lex_order([sub(kw_eff[j]) for j in key_ids])
     bpos = (orderB * stride).to(_I32)
     bks = tuple(torch.gather(sub(kw_eff[j]), 1, orderB) for j in range(KW))
-    lenB, candB = _tier_best(bpos, bks, pred_ranks=NEIGHBORS, succ_ranks=NEIGHBORS)
-    mlenB, distB = sort_back(orderB, lenB, candB, sub(pos))
+    b_ranks = NEIGHBORS if b_ranks is None else tuple(b_ranks)
+    lenB, candB = _tier_best(bpos, bks, pred_ranks=b_ranks, succ_ranks=b_ranks)
+    mlenB, distB = _sort_back(orderB, lenB, candB, sub(mw.pos), mw.n)
     if stride > 1:
         # interleave back to byte resolution (off-stride: no tier-B match)
         def expand(x):
@@ -220,10 +238,26 @@ def _find_matches(blocks_u8: torch.Tensor, n: torch.Tensor, dense: bool = True):
             return z.view(B, BS)
 
         mlenB, distB = expand(mlenB), expand(distB)
-    tiers.append((mlenB, distB))
+    return mlenB, distB
 
-    tiers.extend(_run_tier(blocks_u8, n))
-    return tiers
+
+def _find_matches(blocks_u8: torch.Tensor, n: torch.Tensor, dense: bool = True, *,
+                  a_ranks=None, b_ranks=None, dense_keys=None, a_words: int = 4):
+    """Per-position (match_len, dist >= 1); len 0 where no match.  Tier A,
+    tier B (dense: all 16 key words at byte resolution; fast: 6 sampled key
+    words at stride 4), then the run tiers — the JAX `_find_matches`.
+
+    The keyword knobs are the JAX encoder's A/B levers for the profiling
+    tools; the defaults are the tested configuration.  Tier A carries
+    kws[1:a_words] beside its key and examines the in-group predecessors
+    `a_ranks` (default 1-4 dense, 1-6 fast); tier B sorts by the key words
+    `dense_keys` when dense (fast keeps (0, 1, 4, 8, 12, 15)) and examines
+    `b_ranks` (default NEIGHBORS) as predecessors and successors.  The JAX
+    `pos16` (positions riding the TPU's sorts as u16) is not taken: here the
+    order is torch.sort's indices and _sort_back inverts it by a scatter, so
+    no byte depends on the positions' width."""
+    mw = _match_words(blocks_u8, n)
+    return [_tier_a(mw, dense, a_ranks, a_words), _tier_b(mw, dense, b_ranks, dense_keys)] + _run_tier(blocks_u8, n)
 
 
 def _prefix_winner(key, payloads):
@@ -359,8 +393,9 @@ def _reglue(blocks_u8, is_copy, ad, lead, tail, n):
     return is_copy, ad, lead, tail
 
 
-# Emission sections per block (wire bytes are section-count invariant; 64
-# is the JAX encoder's choice and fixes the concat kernel's shape).
+# Emission sections per block: the JAX encoder's default.  Wire bytes are
+# section-count invariant (sections own disjoint, contiguous dest ranges);
+# the count sets K1's shape: S sections of _section_capacity(BS // S) bytes.
 _NSEC = 64
 
 
@@ -370,13 +405,28 @@ def _section_capacity(sp: int) -> int:
     return ((sp + sp // 4 + 128 + 511) // 512) * 512
 
 
-def _emit(blocks_u8, is_copy, ad, lead, tail, n, seccap=None):
-    """Byte-granular interval emission + sectioned compaction.  Returns
-    ((B, PAD_OUT) uint8 rows, (B,) int32 totals), total -1 where a section
-    overflowed its capacity (seccap is overridable only to test that)."""
-    nsec = _NSEC
-    sp = BS // nsec
-    seccap = _section_capacity(sp) if seccap is None else seccap
+class _Geometry(NamedTuple):
+    """What `_emit`'s compaction needs from its geometry: per position the
+    emitted size and dest offset, the op and literal-header fields, and per
+    block the total."""
+
+    size: torch.Tensor
+    off: torch.Tensor
+    total: torch.Tensor
+    op_start: torch.Tensor
+    two: torch.Tensor
+    op_len: torch.Tensor
+    d_b: torch.Tensor
+    lstart: torch.Tensor
+    hdr: torch.Tensor
+    rlen: torch.Tensor
+
+
+def _emit_geometry(blocks_u8, is_copy, ad, lead, tail, n) -> _Geometry:
+    """The first half of `_emit`: runs stretched into byte intervals, ops
+    chunked, literal runs, and every position's emitted size, offset and
+    the block's total — all that the total depends on (the JAX
+    tools/enc_stage_fast.py got this half by XLA's dead-code elimination)."""
     B = blocks_u8.shape[0]
     dev = blocks_u8.device
     pos = _pos(B, BS, dev)
@@ -473,6 +523,20 @@ def _emit(blocks_u8, is_copy, ad, lead, tail, n, seccap=None):
     size = opb + lit.to(_I32) + torch.where(lstart, hdr, 0)
     off = torch.cumsum(size, dim=1, dtype=_I32) - size
     total = torch.sum(size, dim=1, dtype=_I32)
+    return _Geometry(size, off, total, op_start, two, op_len, d_b, lstart, hdr, rlen)
+
+
+def _emit_compact(blocks_u8, g: _Geometry, nsec: int, seccap=None):
+    """The second half of `_emit`: every emitted byte pair becomes a slot,
+    nsec per-section sorts compact them and K1 concatenates the sections."""
+    size, off, total, op_start, two, op_len, d_b, lstart, hdr, rlen = g
+    sp = BS // nsec
+    seccap = _section_capacity(sp) if seccap is None else seccap
+    B = blocks_u8.shape[0]
+    zi = _zeros(B, 1, size)
+
+    def rev(x):
+        return torch.flip(x, [1])
 
     # ---- slots: two wire bytes per int32 ----
     d_lo, d_hi = d_b & 0xFF, d_b >> 8
@@ -538,12 +602,25 @@ def _emit(blocks_u8, is_copy, ad, lead, tail, n, seccap=None):
     return out, total
 
 
-def encode_block_core(blocks_u8: torch.Tensor, n: torch.Tensor, dense: bool = True):
-    tiers = _find_matches(blocks_u8, n, dense=dense)
+def _emit(blocks_u8, is_copy, ad, lead, tail, n, nsec=None, seccap=None):
+    """Byte-granular interval emission + sectioned compaction over nsec
+    sections (default _NSEC; it must divide 65536).  Returns ((B, PAD_OUT)
+    uint8 rows, (B,) int32 totals), total -1 where a section overflowed its
+    capacity (seccap is overridable only to test that)."""
+    nsec = _NSEC if nsec is None else nsec
+    if not isinstance(nsec, int) or nsec <= 0 or BS % nsec:
+        raise ValueError(f"nsec must be a positive divisor of {BS}, got {nsec!r}")
+    return _emit_compact(blocks_u8, _emit_geometry(blocks_u8, is_copy, ad, lead, tail, n), nsec, seccap)
+
+
+def encode_block_core(blocks_u8: torch.Tensor, n: torch.Tensor, dense: bool = True, *, nsec=None, **match_kw):
+    """The encoder's stages in order; `nsec` goes to `_emit`, the other
+    knobs to `_find_matches` (the defaults are the tested configuration)."""
+    tiers = _find_matches(blocks_u8, n, dense=dense, **match_kw)
     inh = _inherit(tiers, n)
     is_copy, ad, lead, tail = _elect(tiers, inh, n)
     is_copy, ad, lead, tail = _reglue(blocks_u8, is_copy, ad, lead, tail, n)
-    return _emit(blocks_u8, is_copy, ad, lead, tail, n)
+    return _emit(blocks_u8, is_copy, ad, lead, tail, n, nsec=nsec)
 
 
 def encode_blocks_v2(blocks_u8: torch.Tensor, lens: torch.Tensor, dense: bool = True):

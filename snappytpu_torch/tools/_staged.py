@@ -1,6 +1,6 @@
-"""Staged decoder inputs for the profiling tools — the harness of the JAX
-package's tools/dec_profile.py:43-104, shared by dec_profile, dec_anatomy and
-tape_probe.
+"""Staged inputs for the profiling tools — the harness of the JAX package's
+tools/dec_profile.py:43-104, shared by dec_profile, dec_anatomy and
+tape_probe, and the encoder tools' batches (`encoder_sets`).
 
 A staged set is one batch of B blocks of a corpus (seed 300 + q for set q),
 encoded with the dense profile by the port's encoder on the given device, as
@@ -98,13 +98,49 @@ def stage_sets(which: str, B: int, NQ: int, device, tape: bool = False, cache_di
     return sets
 
 
+def encoder_sets(B: int, NQ: int, device):
+    """The encoder tools' inputs (the JAX tools/stage_profile.py's): NQ
+    batches of B full blocks of corpus.mixed(B * 64 KiB, seed=100 + q), as
+    ((B, 65536) uint8 blocks, (B,) int32 lengths) on `device`."""
+    sets = []
+    for q in range(NQ):
+        data = np.frombuffer(corpus.mixed(B * C.MAX_BLOCK_SIZE, seed=100 + q), np.uint8)
+        blocks, lens = framing.pack_blocks(data)
+        sets.append((torch.from_numpy(blocks[:B]).to(device),
+                     torch.from_numpy(np.asarray(lens[:B], np.int32)).to(device)))
+    return sets
+
+
+def make_log():
+    """A tool's log: each line stamped with the seconds since this call."""
+    t0 = time.time()
+
+    def log(m):
+        print(f"[{time.time() - t0:6.1f}s] {m}", flush=True)
+
+    return log
+
+
+def _first_tensor(x):
+    """The first tensor in x: a tensor, or nested lists and tuples of them."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, (list, tuple)):
+        for y in x:
+            t = _first_tensor(y)
+            if t is not None:
+                return t
+    return None
+
+
 def best_per_batch(fn, sets, reps: int = 3) -> float:
-    """Seconds per batch of fn over the sets, best of `reps` passes after
-    one warm-up pass.  On the card, CUDA events around each pass's queued
+    """Seconds per batch of fn over the sets (each a tuple of arguments,
+    tensors or lists and tuples of them), best of `reps` passes after one
+    warm-up pass.  On the card, CUDA events around each pass's queued
     calls; on the CPU, the host clock."""
     for a in sets:
         fn(*a)
-    cuda = sets[0][0].device.type == "cuda"
+    cuda = _first_tensor(sets[0]).device.type == "cuda"
     best = float("inf")
     for _ in range(reps):
         if cuda:

@@ -21,7 +21,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import sys
-import time
 
 import numpy as np
 import torch
@@ -29,7 +28,7 @@ import torch
 from ..format import constants as C
 
 from ..kernels.decode_vm4 import BS, PAD_OUT, _parse_at, checked
-from ._staged import MAKERS, best_per_batch, device_of, stage_sets
+from ._staged import MAKERS, best_per_batch, device_of, make_log, stage_sets
 
 VARIANTS = ("parse", "window", "full", "fixed")
 FIXED_SRC = 64  # fixed's source: compressed byte 64 (the TPU tool's COMP_OFF + 64)
@@ -169,10 +168,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = device_of(args.device)
-    t0 = time.time()
-
-    def log(m):
-        print(f"[{time.time() - t0:6.1f}s] {m}", flush=True)
+    log = make_log()
 
     log(f"device {dev} ({args.device})")
     for which in args.corpus.split(","):

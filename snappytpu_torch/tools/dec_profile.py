@@ -20,12 +20,11 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 from ..format import constants as C
 
 from ..kernels import decode_tape, decode_vm, decode_vm2, decode_vm4
-from ._staged import MAKERS, best_per_batch, device_of, stage_sets
+from ._staged import MAKERS, best_per_batch, device_of, make_log, stage_sets
 
 DECODERS = {
     "dispatch": decode_vm.decode_blocks_vm,
@@ -50,10 +49,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = device_of(args.device)
-    t0 = time.time()
-
-    def log(m):
-        print(f"[{time.time() - t0:6.1f}s] {m}", flush=True)
+    log = make_log()
 
     log(f"device {dev} ({args.device}) vm={args.vm}")
     for which in args.corpus.split(","):

@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import sys
-import time
 
 import numpy as np
 import torch
@@ -35,7 +34,7 @@ import torch
 from ..format import constants as C
 
 from ..kernels.decode_tape import BS, OUT_BASE, PAD_OUT, _checked, image, records, run_tape_ref
-from ._staged import best_per_batch, device_of, stage_sets
+from ._staged import best_per_batch, device_of, make_log, stage_sets
 
 EXACT = ("full-D1", "full-D3", "acc", "rowbatch2", "rowbatch4", "rowbatch8")
 MODES = EXACT + ("loads", "const-dst")
@@ -160,10 +159,7 @@ def main(argv=None) -> int:
     modes = args.modes.split(",")
     for m in modes:
         _mode(m)
-    t0 = time.time()
-
-    def log(m):
-        print(f"[{time.time() - t0:6.1f}s] {m}", flush=True)
+    log = make_log()
 
     log(f"device {dev} ({args.device}) modes={args.modes}")
     for which in ("text", "mixed"):

@@ -10,8 +10,9 @@ order, the scan under a host warp policy that runs the 32 lanes one after
 another.  The rows are held byte for byte against the plain
 version and, within the contract, against the JAX
 `concat_rows_words` (Pallas interpret mode), at the encoder's shape (64
-sections of 384 words into 73728-byte rows) and a small one (5 sections of
-128 words into 1536-byte rows).  The harness's source load fails the test on
+sections of 384 words into 73728-byte rows), at its other section counts
+(16, 32 and 128 sections of 5632, 3072 and 1024 bytes) and at a small one
+(5 sections of 128 words into 1536-byte rows).  The harness's source load fails the test on
 any read outside the cap bytes of the section it is read for, on any word
 that starts at or past that section's clamped length, and on any word that
 holds no byte of the window it is read for below the row's total (so a
@@ -158,7 +159,11 @@ extern "C" int64_t checked_read(int32_t cap, int32_t len, int32_t s, int32_t k, 
 }
 """
 
-SHAPES = {"main": (64, 384, 73728), "small": (5, 128, 1536)}  # S, words per section, out_cap
+# S, words per section, out_cap: the encoder's default shape, a small one, and
+# the emit's other section counts with their capacities (_section_capacity:
+# 5632, 3072 and 1024 bytes at 16, 32 and 128 sections)
+SHAPES = {"main": (64, 384, 73728), "small": (5, 128, 1536),
+          "s16": (16, 1408, 73728), "s32": (32, 768, 73728), "s128": (128, 256, 73728)}
 B = 3
 
 
@@ -233,6 +238,13 @@ def _lens(kind, rng, S, cap, out_cap):
         return np.stack([_sum_to(rng, S, cap, out_cap - 3) for _ in range(B)]).astype(np.int32)
     if kind == "random":
         return (rng.integers(0, cap + 1, (B, S)) // 2).astype(np.int32)
+    if kind == "random_cap":  # up to cap, each row drawn again until it fits out_cap
+        rows = []
+        while len(rows) < B:
+            ln = rng.integers(0, cap + 1, S)
+            if ln.sum() <= out_cap:
+                rows.append(ln)
+        return np.stack(rows).astype(np.int32)
     if kind == "edges":  # 16k - 1, 16k, 16k + 1 around every 16-byte boundary
         k = 1 + (np.arange(S)[None, :] * 5 + np.arange(B)[:, None] * 3) % (min(cap, out_cap // S) // 16 - 1)
         return (16 * k + (np.arange(S)[None, :] + np.arange(B)[:, None]) % 3 - 1).astype(np.int32)
@@ -249,7 +261,8 @@ def _lens(kind, rng, S, cap, out_cap):
     return ln
 
 
-KINDS = ["zero", "full", "one", "odd", "near_cap", "random", "edges", "straddle", "exact", "broken", "one_gaps"]
+KINDS = ["zero", "full", "one", "odd", "near_cap", "random", "edges", "straddle", "exact", "broken", "one_gaps",
+         "random_cap"]
 
 
 @functools.cache

@@ -27,6 +27,8 @@ from snappytpu_torch.model import decode, encode
 from snappytpu_torch.mesh import sharding
 from snappytpu_torch.stream import filecodec, framing, manifest
 from snappytpu_torch.tools import _staged, config4_mesh, dec_anatomy, dec_profile, probe_scalar, tape_probe
+from snappytpu_torch.tools import (bigfile_bench, dist_bench, enc_ablate, enc_profile, enc_sizes, enc_stage_fast,
+                                   enc_variants, stage_profile)
 
 data = corpus.mixed(70_000, seed=3)
 for profile in ("fast", "dense"):
@@ -47,6 +49,12 @@ comp, totals = mesh.encode_mesh(m, blocks, lens, "fast")
 assert encode_varint(len(data)) + cpu.compact(comp, totals) == api.compress(data, "fast", device="cpu")
 entry.dryrun_multichip(2, device="cpu")
 assert run.measure("mixed", 1, 1, device="cpu")["backend"] == "cpu"
+# the encoder's knobs and an encoder tool
+blocks1, lens1 = (torch.from_numpy(a[:1]) for a in framing.pack_blocks(np.frombuffer(data, np.uint8)))
+rows64, t64 = encode_v2.encode_block_core(blocks1, lens1, True)
+rows16, t16 = encode_v2.encode_block_core(blocks1, lens1, True, nsec=16, dense_keys=tuple(range(16)))
+assert torch.equal(rows64, rows16) and torch.equal(t64, t16)
+assert enc_ablate.main(["--device", "cpu", "--b", "1", "--nq", "1"]) == 0
 # the profiling tools' plain routes
 p = probe_scalar.Probe("smem_chase")
 tile, _ = probe_scalar.run(p, torch.from_numpy(probe_scalar.inputs(p)), 50)
@@ -79,6 +87,10 @@ def test_build_is_lazy():
              "import snappytpu_torch.stream.manifest, snappytpu_torch.tools.config4_mesh;"
              "import snappytpu_torch.tools.dec_profile, snappytpu_torch.tools.dec_anatomy;"
              "import snappytpu_torch.tools.tape_probe, snappytpu_torch.tools.probe_scalar;"
+             "import snappytpu_torch.tools.stage_profile, snappytpu_torch.tools.enc_profile;"
+             "import snappytpu_torch.tools.enc_stage_fast, snappytpu_torch.tools.enc_ablate;"
+             "import snappytpu_torch.tools.enc_sizes, snappytpu_torch.tools.enc_variants;"
+             "import snappytpu_torch.tools.dist_bench, snappytpu_torch.tools.bigfile_bench;"
              "assert b.library.cache_info().currsize == 0;"
              "assert 'torch.utils.cpp_extension' not in sys.modules; print('ok')")
     r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
