@@ -55,7 +55,10 @@ set to 0 just before it and read just after:
         its last stdout line parsed and its keys checked
   15    the mesh path: make_mesh(1) on cuda:0; the config-4 check (100 MB of
         text through encode_mesh/decode_mesh, dense, equal to api.compress on
-        the card and round-tripped); the same encode under an NCCL process
+        the card and round-tripped); the same input staged once as
+        device-resident shards through sharded_encode (both profiles) and
+        sharded_decode, dense rows and flags equal to the mesh's, timed
+        device-only (the JAX tool's `tpu1` rows); the same encode under an NCCL process
         group of world size 1 made by init_distributed (the same rows);
         make_mesh past the card count raises; two manifest shards with the
         default encoder on the card, assembled, equal to api.compress;
@@ -63,6 +66,20 @@ set to 0 just before it and read just after:
         dryrun_multichip(1); the mesh sweep at two sizes; then, outside
         the path's counts, config 4's encode and decode taken apart into
         copies in, device calls and copies out (CUDA events)
+  16    the encoder tools (snappytpu_torch.tools) in process at the JAX
+        tools' sizes, after K1 on the encoder's own sections at nsec 16, 32
+        and 128
+  17    the research path: phase 5's 512 blocks through the v1 encoder
+        (encode_blocks, dense tiers) and encode_pipeline (fast, dense), in
+        calls of 128; the dense pipeline's rows equal encode_blocks' on the
+        device; 16 blocks per profile equal the numpy model; every research
+        stream decoded by decode_blocks (which is decode_pipeline) and K2,
+        every block ok and equal to the input; phase 5's encode_v2 rows
+        through the v1 decoder equal to K2; a mutated 128-block batch whose
+        flags (v1, K2) equal the numpy model's verdicts; the numpy spec
+        against the card's encode_v2 stages on a 12 KB text block; encode
+        MB/s, decode GB/s (best of 3 passes each) and peak memory per call
+        beside encode_v2's and K2's, timed the same way
   13    report (run last)
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
@@ -626,6 +643,53 @@ def mesh_split(dev, mesh, blocks, lens, comp, totals, e_wall: float) -> None:
             f"host rest {d_wall - d_in - d_calls - d_out:.1f} ms")
 
 
+def sharded_times(dev, mesh, blocks, lens, comp, totals, c4: dict) -> None:
+    """Phase 15's device-resident sharded calls on config 4, as the JAX
+    tool's `tpu1` mode times them: the input staged once as shards on the
+    mesh, then sharded_encode (both profiles) and sharded_decode on the
+    encoded shards, device-only and synchronised, best of 3 after a warm-up
+    call.  Dense rows and totals must equal encode_mesh's, decoded rows and
+    flags decode_mesh's; fast rows must decode to the input on the card."""
+    from snappytpu_torch.mesh import sharding
+
+    staged = [[torch.from_numpy(a).to(dev)] for a in (blocks, lens)]
+    want_out, want_ok = sharding.decode_mesh(mesh, comp, totals, lens)
+    nbytes = int(lens.sum())
+
+    def best_ms(fn):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return r, min(times)
+
+    for profile in ("dense", "fast"):
+        (c_s, t_s), e_ms = best_ms(lambda: sharding.sharded_encode(mesh, profile == "dense")(*staged))
+        (o_s, k_s), d_ms = best_ms(lambda: sharding.sharded_decode(mesh)(c_s, t_s, staged[1]))
+        if bool((torch.cat(t_s) < 0).any()):
+            raise AssertionError(f"sharded_encode ({profile}) poisoned a block of config 4")
+        if profile == "dense":
+            if not (np.array_equal(torch.cat(c_s).cpu().numpy(), comp)
+                    and np.array_equal(torch.cat(t_s).cpu().numpy(), totals)):
+                raise AssertionError("sharded_encode's rows differ from encode_mesh's")
+            if not (np.array_equal(torch.cat(k_s).cpu().numpy(), want_ok)
+                    and np.array_equal(torch.cat(o_s).cpu().numpy(), want_out)):
+                raise AssertionError("sharded_decode's rows or flags differ from decode_mesh's")
+        elif not (bool(torch.cat(k_s).all()) and torch.equal(torch.cat(o_s), staged[0][0])):
+            raise AssertionError("the fast shards do not decode to the input on the card")
+        log(f"[15 sharded] config 4 {profile}, device-resident shards on a one-card mesh (best of 3, synchronised): "
+            f"sharded_encode {e_ms:.1f} ms ({nbytes / 1e6 / (e_ms / 1e3):.1f} MB/s), sharded_decode {d_ms:.2f} ms "
+            f"({nbytes / 1e9 / (d_ms / 1e3):.2f} GB/s); "
+            + ("rows and totals equal encode_mesh's, rows and flags decode_mesh's; the host-array calls took "
+               f"{c4['encode_s'] * 1e3:.1f} / {c4['decode_s'] * 1e3:.1f} ms" if profile == "dense" else
+               "every block decodes to the input on the card"))
+    del staged
+
+
 def mesh_path(dev) -> dict:
     """Phase 15: the block-parallel path on the card with the launch counts
     at 0 (see the module docstring).  Returns the launch counts."""
@@ -646,6 +710,7 @@ def mesh_path(dev) -> dict:
     c4 = config4_mesh.check(100, 1, device="cuda", log=log)
     blocks, lens = c4["input"]
     comp, totals = c4["rows"]
+    sharded_times(dev, mesh, blocks, lens, comp, totals, c4)
 
     # the same encode under an NCCL process group of world size 1
     with socket.socket() as s:
@@ -837,6 +902,196 @@ def encoder_tools_path(dev) -> tuple[dict, dict]:
     if min(launches["concat"], launches["decode_block"]) <= 0:
         raise AssertionError(f"a kernel of the encoder tools' path never launched: {launches}")
     return k1, launches
+
+
+def call_peak(fn) -> float:
+    """GiB the card allocates during one call of fn above what was resident
+    before it (its outputs included), synchronised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def best_pass(fn, batches, reps: int = 3) -> tuple[list, float]:
+    """reps passes of fn over every batch in turn, each synchronised ->
+    (the last pass's outputs, the fastest pass's seconds)."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(*b) for b in batches]
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return outs, best
+
+
+def spec_check(dev) -> str:
+    """The numpy spec against the card's encode_v2 on one 12 KB text block:
+    the stage arrays under tests/test_encode_v2_spec.py's masks, then the
+    bytes."""
+    from snappytpu_torch.bench import corpus
+    from snappytpu_torch.kernels import encode_v2 as E
+    from snappytpu_torch.model import encode_v2_spec as S
+
+    data = corpus.text(12_000)
+    n = len(data)
+    block = np.zeros(S.BS, np.uint8)
+    block[:n] = np.frombuffer(data, np.uint8)
+    b = torch.from_numpy(block[None]).to(dev)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    tiers = E._find_matches(b, lens, dense=True)
+    mlen, dist = (x[0].cpu().numpy() for x in E._best_tier(tiers))
+    inh = E._inherit(tiers, lens)
+    rg = E._reglue(b, *E._elect(tiers, inh, lens), lens)
+    comp, total = E._emit(b, *rg, lens)
+    inh, rg = ([x[0].cpu().numpy() for x in t] for t in (inh, rg))
+    s_bytes, s = S.spec_encode_block(block, n, dense=True)
+    na = (n + S.G - 1) // S.G
+    live, inh_live, cp = s["mlen"][:n] > 0, s["inherit"][0][:na] >= 0, s["is_copy"][:na]
+    checks = {
+        "mlen": np.array_equal(mlen[:n], s["mlen"][:n]),
+        "dist": np.array_equal(dist[:n][live], s["dist"][:n][live]),
+        "inherit reach": np.array_equal(inh[0][:na], s["inherit"][0][:na]),
+        "inherit dist": np.array_equal(inh[1][:na][inh_live], s["inherit"][1][:na][inh_live]),
+        "is_copy": np.array_equal(rg[0][:na], cp),
+        **{k: np.array_equal(rg[i][:na][cp], s[k][:na][cp]) for i, k in ((1, "ad"), (2, "lead"), (3, "tail"))},
+        "bytes": comp[0, : int(total[0])].cpu().numpy().tobytes() == s_bytes,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"the card's encode_v2 differs from the spec on a 12 KB text block: {bad}")
+    return f"{n} bytes -> {len(s_bytes)}: {', '.join(checks)} equal"
+
+
+def research_path(dev, bl, ll, encs, results) -> tuple[dict, dict]:
+    """Phase 17: the research codecs on phase 5's 32 MiB batches with the
+    launch counts at 0 (see the module docstring).  Returns (launch counts of
+    the path, the measured numbers)."""
+    from snappytpu_torch.config import PROFILES
+    from snappytpu_torch.kernels import decode_jax, encode_jax, encode_v2, pipeline
+    from snappytpu_torch.kernels.decode_vm import decode_blocks_vm
+    from snappytpu_torch.model import decode_ops, encode_block
+    from snappytpu_torch.model.decode import CorruptError
+
+    encoders = {"v1": encode_jax.encode_blocks,
+                "pipeline fast": lambda b, n: pipeline.encode_pipeline(b, n, "fast"),
+                "pipeline dense": lambda b, n: pipeline.encode_pipeline(b, n, "dense")}
+    # the JAX pipeline's decoder gives decode_jax's rows and flags, so the
+    # port has one function for both
+    if pipeline.decode_pipeline is not decode_jax.decode_blocks:
+        raise AssertionError("decode_pipeline is no longer decode_blocks: give it its own row here")
+    decoders = {"v1 = pipeline": decode_jax.decode_blocks, "K2": decode_blocks_vm}
+    nblk = sum(b.shape[0] for b in bl)
+    mb = sum(int(n.sum()) for n in ll) / 1e6
+    out = {"encode_MBps": {}, "encode_peak_GiB": {}, "decode_GBps": {}, "decode_peak_GiB": {}}
+    # encode_v2 and K2 beside them, timed the same way (before the path's counts)
+    for p in ("fast", "dense"):
+        fn = lambda b, n, d=p == "dense": encode_v2.encode_blocks_v2(b, n, d)  # noqa: E731
+        out["encode_peak_GiB"][f"encode_v2 {p}"] = call_peak(lambda: fn(bl[0], ll[0]))  # also the warm-up
+        out["encode_MBps"][f"encode_v2 {p}"] = mb / best_pass(fn, list(zip(bl, ll)))[1]
+        k2_batches = [(c, t, n) for (c, t), n in zip(encs[p], ll)]
+        decode_blocks_vm(*k2_batches[0])
+        out["decode_GBps"].setdefault("K2", {})[f"encode_v2 {p}"] = mb / 1e3 / best_pass(decode_blocks_vm, k2_batches)[1]
+
+    zero_counts()
+    enc = {}
+    for name, fn in encoders.items():
+        out["encode_peak_GiB"][name] = call_peak(lambda: fn(bl[0], ll[0]))  # also the warm-up
+        enc[name], secs = best_pass(fn, list(zip(bl, ll)))
+        out["encode_MBps"][name] = mb / secs
+        totals = torch.cat([t for _c, t in enc[name]])
+        if bool((totals < 0).any()):
+            raise AssertionError(f"{name}: negative totals in blocks {torch.nonzero(totals < 0).flatten().tolist()}")
+        log(f"[17 research] encode {name}: {mb / secs:.1f} MB/s ({secs * 1e3:.1f} ms for {nblk} blocks, best of 3), ratio "
+            f"{mb * 1e6 / int(totals.sum()):.4f}, peak {out['encode_peak_GiB'][name]:.2f} GiB above resident per "
+            f"{BATCH}-block call")
+    for (c1, t1), (c2, t2) in zip(enc["v1"], enc["pipeline dense"]):
+        if not (torch.equal(c1, c2) and torch.equal(t1, t2)):
+            raise AssertionError("encode_pipeline(dense) differs from encode_blocks on the card")
+    log(f"[17 research] encode_pipeline(dense) rows and totals equal encode_blocks' on all {nblk} blocks (device)")
+
+    # 16 blocks per profile byte for byte against the numpy model
+    picks = range(0, nblk, nblk // 16)
+    t0 = time.perf_counter()
+    for profile in ("fast", "dense"):
+        for i in picks:
+            (c, t), n, b = enc[f"pipeline {profile}"][i // BATCH], ll[i // BATCH], bl[i // BATCH]
+            j, k = i % BATCH, int(n[i % BATCH])
+            if c[j, : int(t[j])].cpu().numpy().tobytes() != encode_block(b[j, :k].cpu().numpy(),
+                                                                          tiers_spec=PROFILES[profile]):
+                raise AssertionError(f"pipeline {profile}: block {i} differs from the numpy model")
+    log(f"[17 research] {len(picks)} blocks per profile (every {nblk // len(picks)}th) equal the numpy model with the "
+        f"profile's tiers ({time.perf_counter() - t0:.1f} s)")
+
+    # every research stream through both decoders
+    for dname, dfn in decoders.items():
+        gbps, peak = out["decode_GBps"].setdefault(dname, {}), 0.0
+        for ename in encoders:
+            batches = [(c, t, n) for (c, t), n in zip(enc[ename], ll)]
+            peak = max(peak, call_peak(lambda: dfn(*batches[0])))
+            dec, secs = best_pass(dfn, batches)
+            ok = sum(int(k.sum()) for _o, k in dec)
+            match = sum(int((o == b).all(dim=1).sum()) for (o, _k), b in zip(dec, bl))
+            if ok != nblk or match != nblk:
+                raise AssertionError(f"{dname} on the {ename} stream: {nblk - ok} blocks not ok, {nblk - match} differ")
+            gbps[ename] = mb / 1e3 / secs
+        out["decode_peak_GiB"][dname] = peak
+        log(f"[17 research] decode by {dname} (best of 3): "
+            + ", ".join(f"{e} stream {g:.3f} GB/s" for e, g in gbps.items())
+            + f"; every block ok and equal to the input; peak {peak:.2f} GiB above resident per call")
+    # phase 5's encode_v2 rows through the v1 decoder: rows and flags equal K2's
+    for profile, rows in encs.items():
+        for (c, t), n in zip(rows, ll):
+            o2, k2 = decode_blocks_vm(c, t, n)
+            o, k = decode_jax.decode_blocks(c, t, n)
+            if not (torch.equal(k, k2) and torch.equal(o, o2)):
+                raise AssertionError(f"the v1 decoder differs from K2 on phase 5's {profile} rows")
+    log("[17 research] phase 5's encode_v2 rows (both profiles): the v1 (= pipeline) decoder's rows and flags equal "
+        "K2's")
+
+    # a mutated 128-block batch: every decoder's verdict is the numpy model's
+    rng = np.random.default_rng(17)
+    c, t = (x.cpu().numpy() for x in enc["v1"][0])
+    n = ll[0].cpu().numpy()
+    bad = c.copy()
+    for i in range(0, BATCH, 2):  # every other row mutated, 1-4 bytes inside its stream
+        for _ in range(1 + i // 2 % 4):
+            bad[i, int(rng.integers(0, max(int(t[i]), 1)))] ^= int(rng.integers(1, 256))
+    verdicts = []
+    for i in range(BATCH):
+        try:
+            verdicts.append(decode_ops(bad[i, : t[i]], int(n[i])).tobytes())
+        except (CorruptError, ValueError):
+            verdicts.append(None)
+    accepted = [v is not None for v in verdicts]
+    args = (torch.from_numpy(bad).to(dev), enc["v1"][0][1], ll[0])
+    for dname, dfn in decoders.items():
+        o, k = (x.cpu().numpy() for x in dfn(*args))
+        if k.tolist() != accepted:
+            raise AssertionError(f"{dname}'s flags differ from the model's verdicts on the mutated batch: "
+                                 f"{[i for i in range(BATCH) if k[i] != accepted[i]]}")
+        if any(o[i, : n[i]].tobytes() != v for i, v in enumerate(verdicts) if v is not None):
+            raise AssertionError(f"{dname}'s rows differ from the model's output where it accepts")
+    log(f"[17 research] mutated {BATCH}-block batch ({sum(accepted)} accepted by the model): v1 (= pipeline) and K2 "
+        f"flags equal the model's verdicts, rows equal its output where it accepts")
+    launches = read_counts()
+    log(f"[17 research] kernel launches on the path: {launches}")
+    if launches["decode_block"] <= 0:
+        raise AssertionError(f"K2 never launched on the research path: {launches}")
+
+    log(f"[17 spec] {spec_check(dev)}")
+    em, pk, dg = out["encode_MBps"], out["encode_peak_GiB"], out["decode_GBps"]
+    log("[17 research] encode MB/s, best of 3 passes over the 512 blocks each: "
+        + ", ".join(f"{k} {v:.1f} (peak {pk[k]:.2f} GiB a call)" for k, v in em.items())
+        + f"; phase 5's single pass: encode_v2 fast {results['fast']['encode_MBps']:.1f}, dense "
+        f"{results['dense']['encode_MBps']:.1f}. Decode GB/s, best of 3: v1 (= pipeline) on the v1 stream "
+        f"{dg['v1 = pipeline']['v1']:.3f}, K2 on it {dg['K2']['v1']:.3f}, K2 on encode_v2's "
+        f"{dg['K2']['encode_v2 fast']:.3f} fast, {dg['K2']['encode_v2 dense']:.3f} dense")
+    log(f"[17 research] summary {json.dumps(out)}")
+    return launches, out
 
 
 def main() -> int:
@@ -1378,6 +1633,11 @@ def main() -> int:
     kernels["concat"].update(sections_ms=k1_sections["sections_ms"],
                              sections_bound_ms=k1_sections["sections_bound_ms"])
     log(f"[16 encoder_tools] phase time {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17. the research codecs ----
+    t0 = time.perf_counter()
+    paths["research"], _ = research_path(dev, bl, ll, encs, results)
+    log(f"[17 research] phase time {time.perf_counter() - t0:.1f} s")
 
     # ---- 13. report ----
     info = {  # name -> (source, TPU kernel it replaces, the path it runs on)

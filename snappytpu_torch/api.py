@@ -56,25 +56,6 @@ def _as_u8(data) -> np.ndarray:
     return np.ascontiguousarray(data, dtype=np.uint8)
 
 
-def launch_batches(fn, arrays, device, first: int = 0) -> list:
-    """Copy host block-major `arrays` to `device`, then launch fn on each run
-    of at most DEVICE_BATCH blocks without waiting for it -> [(first +
-    offset, fn's outputs)].  Every input is copied before the first launch:
-    a copy from pageable memory waits for its card's queue."""
-    staged = [(s, [torch.from_numpy(a[s : s + DEVICE_BATCH]).to(device) for a in arrays])
-              for s in range(0, arrays[0].shape[0], DEVICE_BATCH)]
-    return [(first + s, fn(*args)) for s, args in staged]
-
-
-def fetch_batches(calls, bufs: list) -> list:
-    """Copy the outputs of launch_batches' calls into the host arrays `bufs`
-    at their offsets; returns bufs."""
-    for start, outs in calls:
-        for buf, out in zip(bufs, outs):
-            buf[start : start + out.shape[0]] = out.cpu().numpy()
-    return bufs
-
-
 def check_totals(totals: np.ndarray, first: int = 0) -> None:
     """CapacityError naming every block (first + index) with a negative total."""
     if (totals < 0).any():
@@ -90,10 +71,14 @@ def encode_rows(blocks: np.ndarray, lens: np.ndarray, profile: str = "dense", *,
     blocks -> host ((B, PAD_OUT) uint8, (B,) int32).  CapacityError on a
     poisoned block, named as first + its index."""
     B = blocks.shape[0]
-    comp, totals = fetch_batches(
-        launch_batches(lambda b, n: encode_blocks(b, n, profile), (blocks, lens), device),
-        [np.empty((B, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8), np.empty(B, np.int32)],
-    )
+    # every input is copied before the first launch: a copy from pageable
+    # memory waits for its card's queue
+    staged = [(s, [torch.from_numpy(a[s : s + DEVICE_BATCH]).to(device) for a in (blocks, lens)])
+              for s in range(0, B, DEVICE_BATCH)]
+    calls = [(s, encode_blocks(b, n, profile)) for s, (b, n) in staged]
+    comp, totals = np.empty((B, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8), np.empty(B, np.int32)
+    for s, (c, t) in calls:
+        comp[s : s + c.shape[0]], totals[s : s + t.shape[0]] = c.cpu().numpy(), t.cpu().numpy()
     check_totals(totals, first)
     return comp, totals
 

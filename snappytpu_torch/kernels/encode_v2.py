@@ -623,12 +623,17 @@ def encode_block_core(blocks_u8: torch.Tensor, n: torch.Tensor, dense: bool = Tr
     return _emit(blocks_u8, is_copy, ad, lead, tail, n, nsec=nsec)
 
 
-def encode_blocks_v2(blocks_u8: torch.Tensor, lens: torch.Tensor, dense: bool = True):
-    """Batched block encode: (B, BS) uint8 + (B,) int32 ->
-    ((B, PAD_OUT) uint8, (B,) int32), on the device of the inputs.
-    dense=False is the `fast` profile."""
+def check_blocks(blocks_u8: torch.Tensor, lens: torch.Tensor) -> None:
+    """ValueError unless blocks are (B, BS) uint8 and lens (B,) on their device."""
     if blocks_u8.dtype != torch.uint8 or blocks_u8.dim() != 2 or blocks_u8.shape[1] != BS:
         raise ValueError(f"blocks must be (B, {BS}) uint8, got {tuple(blocks_u8.shape)} {blocks_u8.dtype}")
     if lens.shape != (blocks_u8.shape[0],) or lens.device != blocks_u8.device:
         raise ValueError("lens must be (B,) on the blocks' device")
+
+
+def encode_blocks_v2(blocks_u8: torch.Tensor, lens: torch.Tensor, dense: bool = True):
+    """Batched block encode: (B, BS) uint8 + (B,) int32 ->
+    ((B, PAD_OUT) uint8, (B,) int32), on the device of the inputs.
+    dense=False is the `fast` profile."""
+    check_blocks(blocks_u8, lens)
     return encode_block_core(blocks_u8.contiguous(), lens.to(_I32), dense)

@@ -3,30 +3,41 @@ counterpart of snappytpu.mesh.sharding.
 
 The reference has no parallelism at all (single thread, SURVEY.md §2); its
 64 KiB blocks share no state, which is exactly the property exploited here:
-blocks are the data-parallel axis.  PyTorch has no `shard_map`, so the
-blocks are sharded by hand, with the JAX module's contracts kept:
+blocks are the data-parallel axis (AXIS).  PyTorch has no `shard_map` and
+no `NamedSharding`, so the blocks are sharded by hand, with the JAX
+module's contracts kept:
 
   * a mesh is an ordered list of shard devices (`make_mesh`);
-  * the batch is padded with zero-length blocks to a multiple of the global
-    shard count (every process's shards), and each shard encodes or decodes
-    one contiguous block range, in device calls of at most 128 blocks (the
-    encoder's peak memory is per call);
-  * on several CUDA devices every shard's calls are launched before the
-    first device-to-host copy, so the cards overlap;
-  * the outputs come back as host arrays in block order, sliced back to the
-    caller's batch; under a process group every rank passes the whole batch,
-    encodes its own range on its local shards, and the padded rows come back
-    to every rank in rank order by `all_gather` (the counterpart of
-    `process_allgather`); every rank's mesh must be as wide, and a rank on
-    CUDA holds only its own cards (torchrun's LOCAL_RANK of
-    LOCAL_WORLD_SIZE).
+  * a sharded array is a list with one tensor per mesh device, shard j on
+    mesh[j], the shards in block order;
+  * `sharded_encode(mesh, dense)` / `sharded_decode(mesh)` (cached per mesh
+    and profile, as the JAX module's jitted shard_maps are) take and return
+    such lists: each shard is encoded or decoded where it lies, in device
+    calls of at most 128 blocks (the encoder's peak memory is per call),
+    every shard's calls launched before anything waits, and poisoned
+    totals left to the caller.  A shard may also lie in host memory, as a
+    jitted JAX function takes host arrays: it is copied to its device just
+    before its calls, so card j computes while shard j + 1 is copied.  An
+    empty shard gives empty outputs;
+  * `encode_mesh`/`decode_mesh` take host arrays: the batch is padded with
+    zero-length blocks to a multiple of the global shard count (every
+    process's shards), each shard takes one contiguous block range, handed
+    to the sharded call in host memory, and the outputs come back as
+    host arrays in block order, sliced back to the caller's batch; under a
+    process group every rank passes the whole batch, encodes its own range
+    on its local shards, and the padded rows come back to every rank in
+    rank order by `all_gather` (the counterpart of `process_allgather`);
+    every rank's mesh must be as wide, and a rank on CUDA holds only its
+    own cards (torchrun's LOCAL_RANK of LOCAL_WORLD_SIZE).
 
 The bytes do not depend on the number of processes or shards: they equal
-one device's (tests/test_torch_mesh.py, tests/test_torch_distributed.py).
+one device's (tests/test_torch_mesh.py, tests/test_torch_distributed.py,
+tests/test_torch_research.py).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -37,6 +48,8 @@ from .. import api
 from ..format import constants as C
 from ..kernels.decode_vm import decode_blocks_vm as decode_blocks
 from ..kernels.encode_v2 import encode_blocks_v2 as encode_blocks
+
+AXIS = "blocks"
 
 
 def _local_cards(have: int, local_rank: int, local_world: int) -> range:
@@ -89,12 +102,70 @@ def _group() -> tuple[int, int]:
     return (dist.get_rank(), dist.get_world_size()) if _grouped() else (0, 1)
 
 
-def _run_sharded(mesh, fn, arrays, out_shapes):
-    """Pad `arrays` (host, block-major) to the global shard count, run fn on
-    this rank's shards in calls of at most api.DEVICE_BATCH blocks, and
-    return fn's outputs for every block, in block order, as host arrays of
-    the padded batch.  fn's outputs have the shapes (per block) and dtypes
-    of `out_shapes`.  Under a process group every rank's mesh must be as
+_HOST = torch.device("cpu")
+# the outputs' per-block shapes and dtypes, for an empty shard
+_ENCODED = (((C.MAX_COMPRESSED_BLOCK_SIZE,), torch.uint8), ((), torch.int32))
+_DECODED = (((C.MAX_BLOCK_SIZE,), torch.uint8), ((), torch.bool))
+
+
+def _each_shard(mesh: tuple, fn, shards, out_specs) -> list:
+    """fn over every shard on its own device, in calls of at most
+    api.DEVICE_BATCH blocks, all launched before anything waits -> fn's
+    outputs as sharded lists.  A shard in host memory is copied to its
+    device just before its calls; an empty shard gives empty outputs of
+    out_specs' shapes and dtypes without a call."""
+    if any(len(s) != len(mesh) for s in shards):
+        raise ValueError(f"a sharded array needs one tensor per mesh device ({len(mesh)})")
+    per_shard = []
+    for j, dev in enumerate(mesh):
+        args = [s[j] for s in shards]
+        if any(a.device not in (dev, _HOST) for a in args):
+            raise ValueError(f"shard {j} is on {[str(a.device) for a in args]}, not on its mesh device {dev}")
+        args = [a.to(dev) for a in args]
+        B = args[0].shape[0]
+        calls = [fn(*(a[i : i + api.DEVICE_BATCH] for a in args)) for i in range(0, B, api.DEVICE_BATCH)]
+        per_shard.append(calls or [[torch.empty((0, *shape), dtype=dtype, device=dev) for shape, dtype in out_specs]])
+    return [[torch.cat([out[k] for out in calls]) for calls in per_shard] for k in range(len(out_specs))]
+
+
+@functools.lru_cache(maxsize=8)
+def _sharded_encode(mesh: tuple, dense: bool):
+    def run(blocks: list, lens: list):
+        return _each_shard(mesh, lambda b, n: encode_blocks(b, n, dense=dense), (blocks, lens), _ENCODED)
+
+    return run
+
+
+@functools.lru_cache(maxsize=8)
+def _sharded_decode(mesh: tuple):
+    def run(comp: list, comp_lens: list, out_lens: list):
+        return _each_shard(mesh, decode_blocks, (comp, comp_lens, out_lens), _DECODED)
+
+    return run
+
+
+def sharded_encode(mesh, dense: bool = True):
+    """The batched encoder over the mesh: (blocks, lens) sharded lists, shard
+    j a (b_j, BS) uint8 and (b_j,) int32 tensor on mesh[j] -> (comp, totals)
+    sharded lists, ((b_j, PAD_OUT) uint8, (b_j,) int32) on mesh[j].  A
+    shard may lie in host memory instead.  A negative total is the
+    encoder's capacity poison; the caller checks."""
+    return _sharded_encode(tuple(mesh), dense)
+
+
+def sharded_decode(mesh):
+    """The batched block decoder (K2) over the mesh: (comp, comp_lens,
+    out_lens) sharded lists -> (out, ok) sharded lists, ((b_j, BS) uint8,
+    (b_j,) bool) on mesh[j]."""
+    return _sharded_decode(tuple(mesh))
+
+
+def _run_sharded(mesh, sharded_fn, arrays):
+    """Pad `arrays` (host, block-major) to the global shard count, cut
+    this rank's block range into the mesh's shards, run sharded_fn on them
+    (it copies each shard to its device just before launching it) and
+    return its outputs for every block, in block order, as host arrays of
+    the padded batch.  Under a process group every rank's mesh must be as
     wide."""
     B = arrays[0].shape[0]
     rank, world = _group()
@@ -103,20 +174,15 @@ def _run_sharded(mesh, fn, arrays, out_shapes):
         if (widths != len(mesh)).any():
             raise ValueError(f"the ranks' meshes differ in width: {widths.tolist()}")
     Bp = _pad_batch(B, world * len(mesh))
-    padded = []
+    per = Bp // (world * len(mesh))
+    lo = rank * len(mesh) * per  # this rank's first block
+    shards = []
     for a in arrays:
         p = np.zeros((Bp, *a.shape[1:]), a.dtype)
         p[:B] = a
-        padded.append(p)
-    per = Bp // (world * len(mesh))
-    lo = rank * len(mesh) * per  # this rank's first block
-    # every shard's calls launched before the first copy back
-    calls = []
-    for j, dev in enumerate(mesh):
-        start, stop = lo + j * per, lo + (j + 1) * per
-        calls += api.launch_batches(fn, [p[start:stop] for p in padded], dev, first=j * per)
-    local = api.fetch_batches(calls, [np.empty((len(mesh) * per, *shape), dtype) for shape, dtype in out_shapes])
-    if not _grouped():
+        shards.append([torch.from_numpy(p[lo + j * per : lo + (j + 1) * per]) for j in range(len(mesh))])
+    local = [np.concatenate([t.cpu().numpy() for t in out]) for out in sharded_fn(*shards)]
+    if not _grouped() or Bp == 0:  # every rank has the empty batch
         return local
     return [_all_gather(buf, mesh[0]) for buf in local]
 
@@ -141,9 +207,8 @@ def encode_mesh(mesh, blocks: np.ndarray, lens: np.ndarray, profile: str = "dens
     B = blocks.shape[0]
     comp, totals = _run_sharded(
         mesh,
-        lambda b, n: encode_blocks(b, n, dense=(profile != "fast")),
+        sharded_encode(mesh, profile != "fast"),
         (np.asarray(blocks, np.uint8), np.asarray(lens, np.int32)),
-        (((C.MAX_COMPRESSED_BLOCK_SIZE,), np.uint8), ((), np.int32)),
     )
     comp, totals = comp[:B], totals[:B]
     api.check_totals(totals)  # no silent truncation
@@ -156,9 +221,8 @@ def decode_mesh(mesh, comp: np.ndarray, comp_lens: np.ndarray, out_lens: np.ndar
     B = comp.shape[0]
     out, ok = _run_sharded(
         mesh,
-        decode_blocks,
+        sharded_decode(mesh),
         (np.asarray(comp, np.uint8), np.asarray(comp_lens, np.int32), np.asarray(out_lens, np.int32)),
-        (((C.MAX_BLOCK_SIZE,), np.uint8), ((), np.bool_)),
     )
     return out[:B], ok[:B]
 

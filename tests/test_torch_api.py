@@ -105,9 +105,9 @@ def test_capacity_poison_raises(monkeypatch):
 
 
 def test_encode_rows_batches_and_names_poisoned_blocks(monkeypatch):
-    """api.encode_rows, the one batched encode of the api, the manifests'
-    default encoder and (through launch/fetch_batches) the mesh: calls of at
-    most 128 blocks in block order; a poisoned total raises CapacityError,
+    """api.encode_rows, the one batched encode of the api and the manifests'
+    default encoder: calls of at most 128 blocks in block order; a poisoned
+    total raises CapacityError,
     which is the RuntimeError of the JAX api and the ValueError of its mesh,
     naming the block as first + its index."""
     calls = []

@@ -18,12 +18,13 @@ import sys
 import numpy as np
 import torch
 import snappytpu_torch
-from snappytpu_torch import _build, api, cli, cpu, entry, format, mesh, model, profiling
+from snappytpu_torch import _build, api, cli, config, cpu, entry, format, mesh, model, profiling
 from snappytpu_torch.bench import corpus, metrics, run, sweep
 from snappytpu_torch.format import constants, varint
 from snappytpu_torch.format.varint import encode_varint
 from snappytpu_torch.kernels import concat, decode_tape, decode_vm, decode_vm2, decode_vm4, encode_v2
-from snappytpu_torch.model import decode, encode
+from snappytpu_torch.kernels import decode_jax, encode_jax, pipeline
+from snappytpu_torch.model import decode, encode, encode_v2_spec
 from snappytpu_torch.mesh import sharding
 from snappytpu_torch.stream import filecodec, framing, manifest
 from snappytpu_torch.tools import _staged, config4_mesh, dec_anatomy, dec_profile, probe_scalar, tape_probe
@@ -48,6 +49,18 @@ blocks, lens = framing.pack_blocks(np.frombuffer(data, np.uint8))
 comp, totals = mesh.encode_mesh(m, blocks, lens, "fast")
 assert encode_varint(len(data)) + cpu.compact(comp, totals) == api.compress(data, "fast", device="cpu")
 entry.dryrun_multichip(2, device="cpu")
+# the research codecs, the spec and the mesh's sharded calls
+tb, tl = (torch.from_numpy(a[:2]) for a in (blocks, lens))
+rtot = {}
+for profile in config.PROFILES:
+    rc, rt = rtot[profile] = pipeline.encode_pipeline(tb, tl, profile)
+    rows, rcl = framing.pad_chunks([rc[i, : rt[i]].numpy() for i in range(2)])
+    out, ok = pipeline.decode_pipeline(torch.from_numpy(rows), torch.from_numpy(rcl), tl)
+    assert bool(ok.all()) and torch.equal(out, tb)
+assert all(torch.equal(a, b) for a, b in zip(encode_jax.encode_blocks(tb, tl), rtot["dense"]))
+s_comp, s_tot = mesh.sharded_encode(m, False)([tb[:1], tb[1:]], [tl[:1], tl[1:]])
+assert np.array_equal(torch.cat(s_comp).numpy(), comp[:2]) and np.array_equal(torch.cat(s_tot).numpy(), totals[:2])
+spec_bytes, _ = encode_v2_spec.spec_encode_block(blocks[0], 3000)
 assert run.measure("mixed", 1, 1, device="cpu")["backend"] == "cpu"
 # the encoder's knobs and an encoder tool
 blocks1, lens1 = (torch.from_numpy(a[:1]) for a in framing.pack_blocks(np.frombuffer(data, np.uint8)))
@@ -91,6 +104,7 @@ def test_build_is_lazy():
              "import snappytpu_torch.tools.enc_stage_fast, snappytpu_torch.tools.enc_ablate;"
              "import snappytpu_torch.tools.enc_sizes, snappytpu_torch.tools.enc_variants;"
              "import snappytpu_torch.tools.dist_bench, snappytpu_torch.tools.bigfile_bench;"
+             "import snappytpu_torch.config, snappytpu_torch.kernels.pipeline, snappytpu_torch.model.encode_v2_spec;"
              "assert b.library.cache_info().currsize == 0;"
              "assert 'torch.utils.cpp_extension' not in sys.modules; print('ok')")
     r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
