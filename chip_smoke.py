@@ -20,16 +20,19 @@ set to 0 just before it and read just after:
         then K1 on the sections and lengths the encoder handed it in the
         first batch of each profile, checked and timed as in phase 3
   6     the user API with device="cuda"
-  7     K3 (the op-by-op block decoder) against its plain version; its path is
-        the A/B twin of phase 5's decode (the fast batches through K3); then
-        K2 and K3 timed in turns (K2, K3, K3, K2) on phase 5's batches of
-        both profiles
-  8     K5 (the tape decoder on K2's grouped mover) and K6 (the record-by-
-        record walk) against their plain versions on a 128-block host batch
-        (own, native-compressor, mutated, tape-overflow and pad blocks) and
-        on 128 tapes of random records whose batches are not forward; the
-        tape route with its K2 fallback against K2; K5 and K6 timed in turns
-        (K5, K6, K6, K5) on the check batch
+  7     K3 (K4a's parse, then the byte-source resolver) against its plain
+        version and K2; its path is the A/B twin of phase 5's decode (the
+        fast batches through K3); its two launches timed apart and the
+        resolver's rounds read on every batch (16 at most); then K2 and K3
+        timed in turns (K2, K3, K3, K2) on phase 5's batches of both profiles
+  8     K5 (the tape decoder on K2's grouped mover) and K6 (the resolver, the
+        record walk for out-of-order tapes) against their plain versions on
+        a 128-block host batch (own, native-compressor, mutated,
+        tape-overflow and pad blocks; no block may take K6's walk), on the
+        same tapes with two records swapped in every other block (those take
+        the walk) and on 128 tapes of random records whose batches are not
+        forward; the tape route with its K2 fallback against K2; K5 and K6
+        timed in turns (K5, K6, K6, K5) on the check batch
   9     K4 (K4a, the parallel parse, then K4b, the serial mover) against its
         plain version on three calls of 64 chunks: the first, the second
         seeded (ctx0) with the first call's last 64 KiB of output, and the
@@ -37,9 +40,10 @@ set to 0 just before it and read just after:
         whole call timed
   10    the host-resident path: the 32 MB corpus through compress_file and
         decompress_file (the tape route, K5) on the card, the CLI once each
-        way, both host routes (tape, K2) timed part by part, K5 and K6 timed
-        in turns on the stream's host rows, and K6's path, the A/B twin of
-        the tape route
+        way, both host routes (tape, K2) timed part by part, K6 against the
+        plain version on the stream's tapes (no block takes the walk), K5
+        and K6 timed in turns on the stream's host rows, and K6's path, the
+        A/B twin of the tape route
   11    the windowed path: an unaligned 8 MB stream through api.decompress
         (two or more K4 calls of 64 chunks, and no chunk refused to the
         host decoder)
@@ -114,11 +118,15 @@ BATCH = 128
 MAIN_MB = 32
 WIN_MB = 8  # the windowed path's stream: 128+ chunks, so two K4 calls of 64
 BIG_MB = 128  # bigfile_bench's input in phase 16: the tool's default
-# a kernel's measurements beyond the contract's keys: K4's two launches; K1's
-# time by events around wrapper calls, the copy floor, its main-path times and
-# its times at the emit's other section counts (phase 16)
-K_EXTRAS = ("parse_ms", "move_ms", "events_ms", "copy_floor_ms", "main_path_ms", "main_path_bound_ms",
-            "sections_ms", "sections_bound_ms")
+# a kernel's entries beyond the contract's keys: K3's and K6's CUDA kernels
+# and other sources, K3's and K4's launches of each of their two CUDA
+# kernels on their paths and those per call, K3's and K6's most resolver
+# rounds a block; K1's time by events around wrapper calls, the
+# copy floor, its main-path times and its times at the emit's other section
+# counts (phase 16)
+K_EXTRAS = ("cuda_kernels", "sources", "kernel_launches", "kernels_per_call", "parse_ms", "move_ms", "resolve_ms",
+            "rounds", "events_ms", "copy_floor_ms", "main_path_ms", "main_path_bound_ms", "sections_ms",
+            "sections_bound_ms")
 
 
 def log(msg: str) -> None:
@@ -239,7 +247,9 @@ def block_bytes(comp_lens, n: int) -> int:
 
 
 def _counters():
-    """Every kernel's launch count: name -> (module, attribute)."""
+    """Every kernel's launch count: name -> (module, attribute); K3's and
+    K4's calls, and the launches of their CUDA kernels (K4a's parse is
+    both's first), apart."""
     from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4
     from snappytpu_torch.tools import dec_anatomy, probe_scalar, tape_probe
 
@@ -248,6 +258,9 @@ def _counters():
         "decode_block": (decode_vm4, "launches"),
         "decode_block_vm2": (decode_vm2, "launches"),
         "decode_stream": (decode_vm2, "stream_launches"),
+        "stream_parse_kernel": (decode_vm2, "parse_kernel_launches"),
+        "resolve_blocks_kernel": (decode_vm2, "resolve_kernel_launches"),
+        "stream_move_kernel": (decode_vm2, "move_kernel_launches"),
         "decode_tape": (decode_tape, "launches"),
         "decode_tape_k": (decode_tape, "k_launches"),
         "dec_anatomy": (dec_anatomy, "launches"),
@@ -340,6 +353,22 @@ def random_tapes(rng, B: int, S: int):
     pk2 = rng.integers(0, 4, (B, S))
     tapes = np.stack([(src | pk2 << 18 | ln << 20).astype(np.uint32).view(np.int32), dst.astype(np.int32)], -1)
     return tapes.reshape(B, 2 * S), rng.integers(-10, S + 3, B).astype(np.int32)
+
+
+def swap_neighbours(tapes: np.ndarray, nrecs: np.ndarray):
+    """The tapes with records r and r + 1 (r = nrecs // 2 - 1) swapped in
+    every other block that has two or more -> (tapes, which blocks changed).
+    The builder's records are ascending and not empty, so a swapped tape is
+    out of order for K6's resolver."""
+    out = tapes.copy()
+    recs = out.reshape(out.shape[0], -1, 2)
+    changed = np.zeros(len(nrecs), bool)
+    for b in range(0, len(nrecs), 2):
+        if nrecs[b] >= 2:
+            r = nrecs[b] // 2 - 1
+            recs[b, [r, r + 1]] = recs[b, [r + 1, r]]
+            changed[b] = True
+    return out, changed
 
 
 def tape_turns(batches, reps: int) -> dict:
@@ -1129,10 +1158,11 @@ def main() -> int:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line or "smem" in line:
             log(f"[2 build] {line.strip()}")
-    log("[2 build] K2 is decode_blocks_kernel (parse -> move pipeline), K3 decode_blocks_vm2_kernel (op by op), "
-        "both in decode_block.cu; K4 is stream_parse_kernel (K4a) then stream_move_kernel (K4b), in "
-        "decode_stream.cu; K5 is run_tape_kernel (producer -> grouped mover), K6 run_tape_k_kernel (record by "
-        "record), both in decode_tape.cu")
+    log("[2 build] K2 is decode_blocks_kernel (parse -> move pipeline) in decode_block.cu; K3 is "
+        "stream_parse_kernel (K4a's parse, ctx_len 0) then resolve_blocks_kernel (decode_resolve.cuh's resolver), "
+        "in decode_stream.cu and decode_block.cu; K4 is stream_parse_kernel (K4a) then stream_move_kernel (K4b), "
+        "in decode_stream.cu; K5 is run_tape_kernel (producer -> grouped mover), K6 run_tape_k_kernel (the "
+        "resolver, the record walk for out-of-order tapes), both in decode_tape.cu")
 
     rng = np.random.default_rng(7)
     kernels = {}
@@ -1361,16 +1391,37 @@ def main() -> int:
             raise AssertionError(f"api.decompress failed on golden stream {name}")
     log("[6 api] card output equals the CPU path; golden google/snappy streams decode")
 
-    # ---- 7. K3, the op-by-op decoder; K2 against K3 on the main path's batches ----
+    # ---- 7. K3, K4a's parse and the resolver; K2 against K3 on the main path's batches ----
     out3, ok3 = decode_vm2.decode_blocks_vm2(ct, cl, ol)
-    if not torch.equal(ok3, ok_p):
-        raise AssertionError(f"K3 ok flags differ from plain: {torch.nonzero(ok3 != ok_p).flatten().tolist()}")
+    if not (torch.equal(ok3, ok_p) and torch.equal(ok3, ok_k)):
+        raise AssertionError(f"K3 ok flags differ from plain or K2: {torch.nonzero(ok3 != ok_p).flatten().tolist()}")
     k3_err = int((out3[ok3].int() - out_p[ok_p].int()).abs().max())
-    if k3_err != 0:
-        raise AssertionError(f"K3 rows differ from plain where ok (max abs err {k3_err})")
+    if k3_err != 0 or not torch.equal(out3[ok3], out_k[ok_k]):
+        raise AssertionError(f"K3 rows differ from plain or K2 where ok (max abs err {k3_err})")
     k3_ms = event_ms(lambda: decode_vm2.decode_blocks_vm2(ct, cl, ol), 10)
     k3_plain = host_ms(lambda: decode_vm4.decode_blocks_ref(ct, cl, ol), 1)
-    kernels["decode_block_vm2"] = dict(err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=chk_bound)
+    # its two launches apart (CUDA events), and the resolver's rounds, on the
+    # check batch and on phase 5's batches of both profiles
+    k3_batches = {"check": [(ct, cl, ol)]}
+    k3_batches.update({p: [decode_vm4.checked(c, t, n) for (c, t), n in zip(enc, ll)] for p, enc in encs.items()})
+    split, k3_rounds, k3_max = {}, {}, 0
+    for name, batches in k3_batches.items():
+        parsed = [decode_vm2._parse_blocks(*b) for b in batches]
+        rounds = torch.cat([decode_vm2._resolve(b[0], *p)[2] for b, p in zip(batches, parsed)]).cpu().numpy()
+        if rounds.min() < 0 or rounds.max() > 16:
+            raise AssertionError(f"K3's resolver took {rounds.min()}-{rounds.max()} rounds on {name}, outside 0-16")
+        k3_rounds[name] = np.bincount(rounds, minlength=17).tolist()
+        k3_max = max(k3_max, int(rounds.max()))
+        parse_ms = event_ms(lambda: [decode_vm2._parse_blocks(*b) for b in batches], 10)
+        resolve_ms = event_ms(lambda: [decode_vm2._resolve(b[0], *p) for b, p in zip(batches, parsed)], 10)
+        split[name] = dict(parse_ms=parse_ms / len(batches), resolve_ms=resolve_ms / len(batches))
+    del parsed
+    kernels["decode_block_vm2"] = dict(err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=chk_bound,
+                                       parse_ms=split["check"]["parse_ms"], resolve_ms=split["check"]["resolve_ms"],
+                                       rounds=k3_max)
+    log(f"[7 K3] launches apart, ms per 128-block batch (K4a parse / resolve): " + "; ".join(
+        f"{name} {v['parse_ms']:.4f} / {v['resolve_ms']:.4f}" for name, v in split.items())
+        + f"; resolver rounds per block (counts of 0..16): {json.dumps(k3_rounds)}")
     # its path: the A/B twin of phase 5's decode, on the fast profile's batches
     zero_counts()
     dec3 = [decode_vm2.decode_blocks_vm2(c, t, n) for (c, t), n in zip(encs["fast"], ll)]
@@ -1379,9 +1430,11 @@ def main() -> int:
     match = sum(int((o == b).all(dim=1).sum()) for (o, _ok), b in zip(dec3, bl))
     if ok_count != blocks_np.shape[0] or match != blocks_np.shape[0]:
         raise AssertionError("K3 did not decode phase 5's fast batches to the input")
-    log(f"[7 K3] check batch: flags and ok rows equal to plain; kernel {k3_ms:.4f} ms (K2 {k2_ms:.4f} ms), "
+    log(f"[7 K3] check batch: flags and ok rows equal to plain and K2; two launches {k3_ms:.4f} ms "
+        f"(K2 {k2_ms:.4f} ms), "
         f"plain {k3_plain:.1f} ms; A/B path: phase 5's fast batches decode to the input in "
-        f"{paths['main_ab_k3']['decode_block_vm2']} launches")
+        f"{paths['main_ab_k3']['decode_block_vm2']} calls ({paths['main_ab_k3']['stream_parse_kernel']} parse and "
+        f"{paths['main_ab_k3']['resolve_blocks_kernel']} resolve kernel launches)")
     # K2 against K3 on phase 5's batches, in one call, in turns K2, K3, K3, K2
     decoders = {"K2": decode_vm4.decode_blocks_vm4, "K3": decode_vm2.decode_blocks_vm2}
     ab = {}
@@ -1447,6 +1500,28 @@ def main() -> int:
     nrok = int(r_ok.sum())
     if not 0 < nrok < BATCH:
         raise AssertionError(f"the random tapes gave {nrok} ok blocks of {BATCH}")
+    # K6's branch per block: the builder's tapes all resolve, in 16 rounds at
+    # most; with two neighbouring records swapped in every other block (out
+    # of order) those blocks take the walk, and every row and flag still
+    # equals the plain version
+    _o, _k, k6_rounds = decode_tape._resolve_tapes(*decode_tape._checked(tp, nr, rw))
+    r8 = k6_rounds.cpu().numpy()
+    if (r8 < 0).any() or r8.max() > 16:
+        raise AssertionError(f"K6 walked {int((r8 < 0).sum())} builder tapes or took {r8.max()} rounds")
+    swapped, want_walk = swap_neighbours(tapes_np, nrecs_np)
+    s_args = decode_tape.stage(tape_rows, swapped, nrecs_np, device=dev)
+    s_out, s_ok, s_rounds = decode_tape._resolve_tapes(*decode_tape._checked(*s_args))
+    s_pout, s_pok = decode_tape.run_tape_ref(*s_args)
+    err = int((s_out.int() - s_pout.int()).abs().max())
+    if not torch.equal(s_ok, s_pok) or err != 0:
+        raise AssertionError(f"K6 differs from plain on out-of-order tapes (max abs err {err})")
+    walked = s_rounds.cpu().numpy() == -1
+    if not np.array_equal(walked, want_walk):
+        raise AssertionError(f"K6 walked blocks {np.nonzero(walked)[0].tolist()}, not the out-of-order ones")
+    k6_err = max(k6_err, err)
+    log(f"[8 K6] builder tapes: no block took the walk, resolver rounds (counts of 0..16) "
+        f"{np.bincount(r8, minlength=17).tolist()}; {int(want_walk.sum())} out-of-order tapes took the walk, "
+        f"{int(s_ok.sum())} ok, rows and flags equal to plain")
     turns8 = tape_turns([(tp, nr, rw)], 10)
     k5_ms, k6_ms = (sum(v) / len(v) for v in (turns8["K5"], turns8["K6"]))
     # K5's bytes: the records (8 bytes each), the counts, the compressed
@@ -1454,7 +1529,8 @@ def main() -> int:
     k5_bytes = 8 * int(np.maximum(nrecs_np, 0).sum()) + 4 * len(nrecs_np) + int(np.asarray(tape_cl).sum()) \
         + tape_rows.shape[0] * (BS + 1)
     kernels["decode_tape"] = dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes))
-    kernels["decode_tape_k"] = dict(err=k6_err, ms=k6_ms, plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes))
+    kernels["decode_tape_k"] = dict(err=k6_err, ms=k6_ms, plain_ms=k5_plain, bound_ms=bound_ms(k5_bytes),
+                                    rounds=int(r8.max()))
     log(f"[8 K5] {tape_rows.shape[0]} host blocks ({int(ok5.sum())} ok; nrecs max {int(nrecs_np.max())}, "
         f"{int((nrecs_np == -9).sum())} -9, "
         f"{int((nrecs_np == -10).sum())} -10): equal to plain; the route with its K2 fallback equals K2; "
@@ -1581,6 +1657,12 @@ def main() -> int:
         pad = -r.shape[0] % 4
         r, c, o = (np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)]) for a in (r, c, o))
         staged.append(decode_tape.stage(r, *decode_tape.build_tapes(r, c, o), device=dev))
+    for args in staged:  # K6 on the stream's tapes: equal to plain, never the walk
+        o6, k6, r10 = decode_tape._resolve_tapes(*decode_tape._checked(*args))
+        p6, pk6 = decode_tape.run_tape_ref(*args)
+        if not (torch.equal(o6, p6) and torch.equal(k6, pk6)) or bool((r10 < 0).any()) or int(r10.max()) > 16:
+            raise AssertionError("K6 differs from plain on the stream's tapes, walked, or took more than 16 rounds")
+    log(f"[10 host] K6 on the stream's {len(staged)} tape batches: rows and flags equal to plain, no walk")
     turns10 = tape_turns(staged, 5)
     t5, t6 = (sum(v) / len(v) for v in (turns10["K5"], turns10["K6"]))
     log(f"[10 host] K5/K6 on the stream's {len(staged)} batches of host rows, ms per batch in turns K5 "
@@ -1658,6 +1740,21 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their paths: {missing}; {paths}")
     log(f"[13 report] launches by path: {json.dumps(paths)}")
     log(smi)
+    # K3's and K4's CUDA kernels, each launched at least once on the path,
+    # as the kernels' own counts have it
+    for name, path, cuda in (("decode_block_vm2", "main_ab_k3", ("stream_parse_kernel", "resolve_blocks_kernel")),
+                             ("decode_stream", "windowed", ("stream_parse_kernel", "stream_move_kernel"))):
+        launched = {k: paths[path][k] for k in cuda}
+        if min(launched.values()) <= 0:
+            raise AssertionError(f"{name}: a CUDA kernel never launched on the {path} path: {launched}")
+        kernels[name].update(kernel_launches=launched, kernels_per_call=sum(launched.values()) / paths[path][name])
+    # K3's and K6's CUDA kernels and other sources: K3's first launch is
+    # K4a's, and both run decode_resolve.cuh's resolver
+    kernels["decode_block_vm2"].update(cuda_kernels=["stream_parse_kernel", "resolve_blocks_kernel"],
+                                       sources=["snappytpu_torch/csrc/decode_stream.cu",
+                                                "snappytpu_torch/csrc/decode_resolve.cuh"])
+    kernels["decode_tape_k"].update(cuda_kernels=["run_tape_k_kernel"],
+                                    sources=["snappytpu_torch/csrc/decode_resolve.cuh"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": info[name][0], "replaces": info[name][1],
          "launches": paths[info[name][2]][name],

@@ -31,14 +31,16 @@ _SIGNATURES = {
     "snappy_concat_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (comp, comp_lens, out_lens, out, ok, B, stream) -> cudaError_t
     "snappy_decode_blocks": (_P, _P, _P, _P, _P, _I, _P),
-    "snappy_decode_blocks_vm2": (_P, _P, _P, _P, _P, _I, _P),
+    # (comp, recs, nrecs, parsed_ok, out, ok, rounds, B, cap, stream) -> cudaError_t
+    "snappy_resolve_blocks": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (comp, comp_lens, out_lens, ctx_lens, recs, nrecs, ok, N, cap, stream) -> cudaError_t
     "snappy_decode_stream_parse": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (comp, comp_lens, out_lens, ctx0, recs, nrecs, out, N, cap, stream) -> cudaError_t
     "snappy_decode_stream_move": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (tapes, nrecs, comp, out, ok, B, cap, stream) -> cudaError_t
     "snappy_run_tape": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "snappy_run_tape_k": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # (tapes, nrecs, comp, out, ok, rounds, B, cap, stream) -> cudaError_t
+    "snappy_run_tape_k": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (comp, comp_lens, out_lens, out, ok, opc, fold, B, variant, stream) -> cudaError_t
     "snappy_dec_anatomy": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (tapes, nrecs, comp, out, ok, aux, B, cap, mode, k, stream) -> cudaError_t

@@ -15,14 +15,14 @@
 //   * a 4-byte-length literal with b4 & 0xC0     -> bad
 //   * the loop runs while opc < out_len and ip < comp_len
 //   * ok = no bad op, ip == comp_len and opc == out_len
-// ctx_len is how many decoded bytes lie before the block's output: 0 for an
-// independent block (K2, K3, and this header's walk), up to 65536 for a
-// chunk of the windowed decoder (K4's parse, the rule of decode_vm2.py
-// `_block_loop.parse_at`).  Lengths outside the row (comp_len not in
+// ctx_len is how many decoded bytes lie before the block's output: 0 for
+// an independent block (K2, K3's parse, and this header's walk), up to
+// 65536 for a chunk of the windowed decoder (K4's parse, the rule of
+// decode_vm2.py `_block_loop.parse_at`).  Lengths outside the row (comp_len not in
 // [0, 73728], out_len not in [0, 65536]) report not ok.  The rules
 // (op_rules) are written once, over the cursors' width: 64-bit in this
-// header's op-by-op walk (K3, T2), 32-bit in the pipelined walk of
-// decode_pipe.cuh (K2, K4), where every value fits: ip <= 73728 + 64 (a
+// header's op-by-op walk (T2), 32-bit in the pipelined walk of
+// decode_pipe.cuh (K2, K3, K4), where every value fits: ip <= 73728 + 64 (a
 // window may look past comp_len), opc + ctx_len <= 131072, and
 // ip + hdr + len < 2^31 because a 4-byte literal length is at most 2^30.
 // parse_op reads no byte past the 73728-byte row.
@@ -43,7 +43,7 @@ constexpr int64_t kBlockSize = 65536;  // output bytes per block
 constexpr int64_t kPadOut = 73728;     // compressed row bytes per block
 
 // An op: Int is the width of the cursors, int64_t in this header's walk
-// (K3, T2) and int32_t in the pipelined walk of decode_pipe.cuh (K2, K4).
+// (T2) and int32_t in the pipelined walk of decode_pipe.cuh (K2, K3, K4).
 template <class Int>
 struct OpT {
   Int hdr;   // header bytes (tag + length/offset bytes)
@@ -131,9 +131,9 @@ SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_le
 }
 
 #ifdef __CUDACC__
-// Moves one op's bytes with the 32 lanes of a warp: K3's mover
-// (decode_block.cu), and the `full` variant of the anatomy probe T2
-// (dec_anatomy.cu).  The methods are __host__ __device__ only so that the
+// Moves one op's bytes with the 32 lanes of a warp: the op-by-op walk's
+// mover (K3's until K3 moved onto decode_resolve.cuh), the `full` variant
+// of the anatomy probe T2 (dec_anatomy.cu).  The methods are __host__ __device__ only so that the
 // shared decode loop instantiates; the host side is never called.
 struct WarpMover {
   const uint8_t* comp;

@@ -278,6 +278,13 @@ __device__ inline void stage(const uint8_t* comp, int nrow, uint8_t* comp_s, uin
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Let `kernel` take smem bytes of dynamic shared memory (above 48 KB only
+// so), before its launch.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
 // Write a 64 KiB output image to its row with 16-byte stores.
 __device__ inline void write_back(const uint8_t* out_s, uint8_t* out_row) {
   const uint4* os = reinterpret_cast<const uint4*>(out_s);

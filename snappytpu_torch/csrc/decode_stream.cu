@@ -155,11 +155,6 @@ stream_move_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__
   }
 }
 
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-}
-
 }  // namespace
 
 // K4a: (comp, comp_lens, out_lens, ctx_lens) of N chunks -> recs (N, cap),
@@ -167,7 +162,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 extern "C" int snappy_decode_stream_parse(const void* comp, const void* comp_lens, const void* out_lens,
                                           const void* ctx_lens, void* recs, void* nrecs, void* ok, int N, int cap,
                                           void* stream) {
-  cudaError_t err = allow_smem(stream_parse_kernel, kSmemParse);
+  cudaError_t err = snappy_ring::allow_smem(stream_parse_kernel, kSmemParse);
   if (err != cudaSuccess) return static_cast<int>(err);
   stream_parse_kernel<<<N, kThreads, kSmemParse, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_lens),
@@ -180,7 +175,7 @@ extern "C" int snappy_decode_stream_parse(const void* comp, const void* comp_len
 extern "C" int snappy_decode_stream_move(const void* comp, const void* comp_lens, const void* out_lens,
                                          const void* ctx0, const void* recs, const void* nrecs, void* out, int N,
                                          int cap, void* stream) {
-  cudaError_t err = allow_smem(stream_move_kernel, kSmemMove);
+  cudaError_t err = snappy_ring::allow_smem(stream_move_kernel, kSmemMove);
   if (err != cudaSuccess) return static_cast<int>(err);
   stream_move_kernel<<<1, kThreads, kSmemMove, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(comp_lens),

@@ -1,5 +1,7 @@
-// T3: the tape probe — K6's record-by-record walk (K5's until K5 moved onto
-// K2's grouped mover, decode_tape.cu), one cost changed per mode.
+// T3: the tape probe — the record-by-record walk (K5's until K5 moved onto
+// K2's grouped mover, K6's until K6 moved onto the byte-source resolver,
+// which keeps it for out-of-order tapes; decode_tape.cu), one cost changed
+// per mode.
 //
 // Replaces the TPU kernels of tools/tape_probe.py `runner` (`make_kernel`,
 // `make_acc_kernel`, `make_rowbatch_kernel`), which time variants of the

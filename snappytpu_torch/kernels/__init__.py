@@ -3,7 +3,7 @@
   encode_blocks_v2     sort/scan block encoder as torch ops (encode_v2.py),
                        ending in the K1 concat kernel (concat.py)
   decode_blocks_vm     block decoder, K2 (decode_vm4.py via decode_vm.py)
-  decode_blocks_vm2    K3, K2's op-by-op twin, the A/B yardstick (decode_vm2.py)
+  decode_blocks_vm2    K3, K2's A/B twin: K4a's parse, then the resolver (decode_vm2.py)
   decode_stream_vm     windowed stream decoder, K4 (decode_vm2.py)
   decode_blocks_tape   host-tape movement decoder, K5 / K6 (decode_tape.py)
 

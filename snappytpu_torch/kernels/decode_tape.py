@@ -15,15 +15,18 @@ csrc/decode_tape.cuh states their format.
   _run_tape_k (K6)    the same with the JAX package's K blocks per grid step;
                       B % K == 0.  On Hopper independent blocks already run
                       in separate thread blocks, so K is only checked; its
-                      kernel keeps the record-by-record walk, K5's A/B
-                      yardstick
+                      kernel, K5's A/B twin, resolves every byte's source
+                      chain by pointer jumping instead of walking the records
   decode_blocks_tape  host rows -> tapes -> the device; -9 blocks are decoded
                       by K2 on the same device, -10 blocks report not ok
 
 On a CUDA tensor the kernels in csrc/decode_tape.cu run (K5 on K2's grouped
-mover, K6 record by record); on a CPU tensor the plain version below does.  A record that leaves the image, or a copy whose
-source overlaps its destination, stops the walk and the block reports not
-ok (never the builder's records; csrc/decode_tape.cuh says why).
+mover, K6 on csrc/decode_resolve.cuh's resolver, with the record walk for
+a hand-made tape whose records are not in ascending order); on a CPU
+tensor the plain version below does.  A record that leaves the image, or a
+copy whose source overlaps its destination, stops the walk and the block
+reports not ok (never the builder's records; csrc/decode_tape.cuh says
+why).
 """
 
 from __future__ import annotations
@@ -131,9 +134,15 @@ def _checked(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor):
     return tapes.contiguous(), nrecs.to(torch.int32).contiguous(), comp_u8.contiguous()
 
 
-def _launch(tapes, nrecs, comp_u8, what: str, entry: str):
-    """Run the CUDA tape kernel `entry` on a checked batch; an empty batch
-    launches nothing.  The caller counts launches."""
+def _aligned(tapes, comp_u8):
+    """Rows are read with 16-byte loads, records with 8-byte loads."""
+    return (tapes if tapes.data_ptr() % 8 == 0 else tapes.clone(),
+            comp_u8 if comp_u8.data_ptr() % 16 == 0 else comp_u8.clone())
+
+
+def _launch(tapes, nrecs, comp_u8):
+    """K5's kernel on a checked CUDA batch; an empty batch launches nothing.
+    The caller counts launches."""
     from .._build import check, library
 
     B = comp_u8.shape[0]
@@ -141,15 +150,13 @@ def _launch(tapes, nrecs, comp_u8, what: str, entry: str):
     ok = torch.empty(B, dtype=torch.bool, device=comp_u8.device)
     if B == 0:
         return out, ok
-    # rows are staged with 16-byte loads, records with 8-byte loads
-    comp_u8 = comp_u8 if comp_u8.data_ptr() % 16 == 0 else comp_u8.clone()
-    tapes = tapes if tapes.data_ptr() % 8 == 0 else tapes.clone()
+    tapes, comp_u8 = _aligned(tapes, comp_u8)
     with torch.cuda.device(comp_u8.device):
-        rc = getattr(library(), entry)(
+        rc = library().snappy_run_tape(
             tapes.data_ptr(), nrecs.data_ptr(), comp_u8.data_ptr(), out.data_ptr(), ok.data_ptr(),
             B, tapes.shape[1] // 2, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    check(rc, what)
+    check(rc, "_run_tape")
     return out, ok
 
 
@@ -159,10 +166,33 @@ def _run_tape(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor):
     tapes, nrecs, comp_u8 = _checked(tapes, nrecs, comp_u8)
     if comp_u8.device.type == "cpu":
         return run_tape_ref(tapes, nrecs, comp_u8)
-    out = _launch(tapes, nrecs, comp_u8, "_run_tape", "snappy_run_tape")
+    out = _launch(tapes, nrecs, comp_u8)
     if comp_u8.shape[0]:
         launches += 1
     return out
+
+
+def _resolve_tapes(tapes, nrecs, comp_u8):
+    """K6's kernel on a checked CUDA batch -> ((B, BS) uint8, (B,) bool ok,
+    (B,) int32 rounds: the resolver's round count, -1 where the block ran
+    the record walk); an empty batch launches nothing.  The caller counts
+    launches."""
+    from .._build import check, library
+
+    B = comp_u8.shape[0]
+    out = torch.empty((B, BS), dtype=torch.uint8, device=comp_u8.device)
+    ok = torch.empty(B, dtype=torch.bool, device=comp_u8.device)
+    rounds = torch.empty(B, dtype=torch.int32, device=comp_u8.device)
+    if B == 0:
+        return out, ok, rounds
+    tapes, comp_u8 = _aligned(tapes, comp_u8)
+    with torch.cuda.device(comp_u8.device):
+        rc = library().snappy_run_tape_k(
+            tapes.data_ptr(), nrecs.data_ptr(), comp_u8.data_ptr(), out.data_ptr(), ok.data_ptr(),
+            rounds.data_ptr(), B, tapes.shape[1] // 2, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    check(rc, "_run_tape_k")
+    return out, ok, rounds
 
 
 def _run_tape_k(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor, K: int = 4):
@@ -173,10 +203,10 @@ def _run_tape_k(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor,
         raise ValueError(f"batch of {comp_u8.shape[0]} blocks is not a multiple of K={K}")
     if comp_u8.device.type == "cpu":
         return run_tape_ref(tapes, nrecs, comp_u8)
-    out = _launch(tapes, nrecs, comp_u8, "_run_tape_k", "snappy_run_tape_k")
+    out, ok, _rounds = _resolve_tapes(tapes, nrecs, comp_u8)
     if comp_u8.shape[0]:
         k_launches += 1
-    return out
+    return out, ok
 
 
 def stage(comp_np: np.ndarray, tapes: np.ndarray, nrecs: np.ndarray, *, device):

@@ -2,9 +2,10 @@
 
 `decode_blocks_vm2` (K3) is the JAX package's unpipelined block decoder,
 kept there for A/B against K2.  It computes the same function as K2; on
-Hopper it is K2's walk without the pipeline (one warp, one op at a time,
-csrc/decode_block.cu `decode_blocks_vm2_kernel`), with its own launch
-count; its plain version is K2's.
+Hopper it is two launches, with one launch count per call: K4a's parse
+below with every ctx_len 0 (_parse_blocks), then the byte-source resolver
+over its records (_resolve, csrc/decode_block.cu `resolve_blocks_kernel`
+on csrc/decode_resolve.cuh).  Its plain version is K2's.
 
 `decode_stream_vm` (K4) decodes N op chunks of a stream whose ops straddle
 the 64 KiB output grid, in order, with a sliding 64 KiB context:
@@ -31,10 +32,15 @@ import ctypes
 import numpy as np
 import torch
 
-from .decode_vm4 import BS, PAD_OUT, _decode_into, _launch, checked, decode_blocks_ref
+from .decode_vm4 import BS, PAD_OUT, _decode_into, checked, decode_blocks_ref
 
-launches = 0         # kernel launches by decode_blocks_vm2 (the CUDA route only)
-stream_launches = 0  # kernel launches by decode_stream_vm (the CUDA route only)
+launches = 0         # calls of decode_blocks_vm2 that launched its two kernels (the CUDA route only)
+stream_launches = 0  # calls of decode_stream_vm that launched its two kernels (the CUDA route only)
+# launches of each CUDA kernel, counted where it is launched: K4a's parse
+# (by K3 and by K4), K3's resolve and K4b's move
+parse_kernel_launches = 0
+resolve_kernel_launches = 0
+move_kernel_launches = 0
 
 
 def decode_blocks_vm2(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor):
@@ -44,10 +50,40 @@ def decode_blocks_vm2(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: 
     comp_u8, comp_lens, out_lens = checked(comp_u8, comp_lens, out_lens)
     if comp_u8.device.type == "cpu":
         return decode_blocks_ref(comp_u8, comp_lens, out_lens)
-    out = _launch(comp_u8, comp_lens, out_lens, "decode_blocks_vm2", "snappy_decode_blocks_vm2")
-    if comp_u8.shape[0]:
-        launches += 1
-    return out
+    if comp_u8.shape[0] == 0:
+        return (torch.empty((0, BS), dtype=torch.uint8, device=comp_u8.device),
+                torch.empty(0, dtype=torch.bool, device=comp_u8.device))
+    comp_u8 = comp_u8 if comp_u8.data_ptr() % 16 == 0 else comp_u8.clone()  # rows are read in 16-byte pieces
+    out, ok, _rounds = _resolve(comp_u8, *_parse_blocks(comp_u8, comp_lens, out_lens))
+    launches += 1
+    return out, ok
+
+
+def _parse_blocks(comp_u8, comp_lens, out_lens):
+    """K3's first launch, K4a's parse of independent blocks (every ctx_len
+    0), on a checked batch of B > 0 blocks with 16-byte aligned rows ->
+    ((B, REC_CAP, 4) int32 records, (B,) int32 counts, (B,) bool ok)."""
+    return _stream_parse(comp_u8, comp_lens, out_lens, torch.zeros_like(comp_lens))
+
+
+def _resolve(comp_u8, recs, nrecs, parsed_ok):
+    """K3's second launch: _parse_blocks' records resolved into rows ->
+    ((B, BS) uint8, (B,) bool ok, (B,) int32 rounds the resolver took)."""
+    global resolve_kernel_launches
+    from .._build import check, library
+
+    B, dev = comp_u8.shape[0], comp_u8.device
+    out = torch.empty((B, BS), dtype=torch.uint8, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library().snappy_resolve_blocks(
+            comp_u8.data_ptr(), recs.data_ptr(), nrecs.data_ptr(), parsed_ok.data_ptr(), out.data_ptr(),
+            ok.data_ptr(), rounds.data_ptr(), B, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    check(rc, "decode_blocks_vm2 (resolve)")
+    resolve_kernel_launches += 1
+    return out, ok, rounds
 
 
 def decode_stream_ref(comp_u8, comp_lens, out_lens, ctx_lens, ctx0_u8):
@@ -75,6 +111,7 @@ REC_CAP = PAD_OUT // 2  # records per chunk: an op takes two comp bytes or more
 def _stream_parse(comp_u8, comp_lens, out_lens, ctx_lens):
     """K4a on a checked call of N > 0 chunks -> ((N, REC_CAP, 4) int32
     records, (N,) int32 counts, (N,) bool ok)."""
+    global parse_kernel_launches
     from .._build import check, library
 
     N, dev = comp_u8.shape[0], comp_u8.device
@@ -87,12 +124,14 @@ def _stream_parse(comp_u8, comp_lens, out_lens, ctx_lens):
             nrecs.data_ptr(), ok.data_ptr(), N, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     check(rc, "decode_stream_vm (parse)")
+    parse_kernel_launches += 1
     return recs, nrecs, ok
 
 
 def _stream_move(comp_u8, comp_lens, out_lens, ctx0_u8, recs, nrecs):
     """K4b: _stream_parse's records of a checked call moved chunk by chunk
     -> (N, BS) uint8 rows."""
+    global move_kernel_launches
     from .._build import check, library
 
     N = comp_u8.shape[0]
@@ -103,6 +142,7 @@ def _stream_move(comp_u8, comp_lens, out_lens, ctx0_u8, recs, nrecs):
             nrecs.data_ptr(), out.data_ptr(), N, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     check(rc, "decode_stream_vm (move)")
+    move_kernel_launches += 1
     return out
 
 

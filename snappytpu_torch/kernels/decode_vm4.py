@@ -99,11 +99,9 @@ def decode_blocks_ref(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: 
     return torch.from_numpy(out).to(comp_u8.device), torch.from_numpy(ok).to(comp_u8.device)
 
 
-def _launch(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor, what: str,
-            entry: str = "snappy_decode_blocks"):
-    """Run a CUDA block decoder of csrc/decode_block.cu (`entry`: K2's
-    pipelined kernel, or K3's) on a checked batch; an empty batch launches
-    nothing.  The caller counts launches."""
+def _launch(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor):
+    """Run K2's kernel of csrc/decode_block.cu on a checked batch; an empty
+    batch launches nothing.  The caller counts launches."""
     from .._build import check, library
 
     B = comp_u8.shape[0]
@@ -114,12 +112,12 @@ def _launch(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tens
     if comp_u8.data_ptr() % 16:  # the kernel stages rows with 16-byte loads
         comp_u8 = comp_u8.clone()
     with torch.cuda.device(comp_u8.device):
-        rc = getattr(library(), entry)(
+        rc = library().snappy_decode_blocks(
             comp_u8.data_ptr(), comp_lens.data_ptr(), out_lens.data_ptr(),
             out.data_ptr(), ok.data_ptr(), B,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    check(rc, what)
+    check(rc, "decode_blocks_vm4")
     return out, ok
 
 
@@ -143,7 +141,7 @@ def decode_blocks_vm4(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: 
     comp_u8, comp_lens, out_lens = checked(comp_u8, comp_lens, out_lens)
     if comp_u8.device.type == "cpu":
         return decode_blocks_ref(comp_u8, comp_lens, out_lens)
-    out = _launch(comp_u8, comp_lens, out_lens, "decode_blocks_vm4")
+    out = _launch(comp_u8, comp_lens, out_lens)
     if comp_u8.shape[0]:
         launches += 1
     return out

@@ -1,8 +1,8 @@
 """Decode anatomy probe (T2) — the counterpart of the JAX package's
 tools/dec_anatomy.py: times stripped variants of the block decoder's op walk
-(K3's, one op at a time; K2 pipelines the same rules) to attribute its
-per-batch time to the parse, the window read, the write and dynamic
-addressing.
+(K3's until its resolver, one op at a time; K2 pipelines the same rules) to
+attribute its per-batch time to the parse, the window read, the write and
+dynamic addressing.
 
     python -m snappytpu_torch.tools.dec_anatomy [--b 128] [--nq 4]
         [--corpus text] [--variants parse,window,full,fixed] [--device cuda]

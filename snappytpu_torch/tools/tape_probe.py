@@ -1,7 +1,7 @@
 """Tape probe (T3) — the counterpart of the JAX package's
 tools/tape_probe.py: times variants of the tape decoder's record-by-record
-walk (K6's, and K5's before it moved onto K2's grouped mover) to find what
-serialises it.
+walk (K5's and K6's before they moved onto K2's grouped mover and the
+byte-source resolver) to find what serialises it.
 
     python -m snappytpu_torch.tools.tape_probe [--modes full-D3] [--device cuda]
 

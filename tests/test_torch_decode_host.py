@@ -1,11 +1,14 @@
 """The kernels' shared headers, checked from their own source without a GPU.
 
 snappytpu_torch/csrc/decode_block.cuh holds the op rules, the op parser and
-the op-by-op decode loop (K3); decode_pipe.cuh holds K2's parse -> move
-pipeline, whose pieces K4 and K5 reuse; decode_tape.cuh holds the tape
-record format, K5's producer and K6's record-by-record walk.  All are
-host+device code.  Here g++ builds them into a tiny host harness:
-  * K3: a mover with the kernel's parallel copy indexing
+the op-by-op decode loop (K3's walk before its redesign, which the anatomy
+probe T2 dissects); decode_pipe.cuh holds K2's parse -> move pipeline,
+whose pieces K3, K4 and K5 reuse; decode_tape.cuh holds the tape record
+format, K5's producer and the record-by-record walk (K6's for a tape out of
+order, and T3's); test_torch_resolve_host.py checks K3's and K6's
+resolver.  All are host+device code.  Here g++ builds them into a tiny
+host harness:
+  * the op-by-op walk: a mover with the kernel's parallel copy indexing
     (out[opc + j] = out[opc - dist + j % dist]), held against the plain
     version and the JAX decoder on the rows of test_torch_decode.py, plus a
     seeded mutation fuzz against the plain version;
@@ -26,9 +29,8 @@ host+device code.  Here g++ builds them into a tiny host harness:
     forward cut record by record) straight into K2's mover, held against
     the plain _run_tape on builder tapes, random records and forward
     records anywhere in the image;
-  * K6: the record-by-record walk with the kernel's lane indexing (32 lanes
-    emulated in reverse order; fills index j % p), held against the plain
-    _run_tape.
+  * the record walk with the kernel's lane indexing (32 lanes emulated in
+    reverse order; fills index j % p), held against the plain _run_tape.
 """
 
 import ctypes
@@ -295,7 +297,7 @@ extern "C" int run_tape_pipe_host(const int32_t* tape, int64_t nrecs, int64_t ca
   return good ? 1 : 0;
 }
 
-// K6's walk (decode_tape.cuh's run_tape) on the host.
+// The record walk (decode_tape.cuh's run_tape: K6's for a tape out of order, T3's) on the host.
 extern "C" int run_tape_host(const int32_t* tape, int64_t nrecs, int64_t cap, const uint8_t* row, uint8_t* out) {
   static uint8_t img[snappy_tape::kImageBytes];
   memset(img, 0, sizeof img);
