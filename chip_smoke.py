@@ -55,8 +55,10 @@ set to 0 just before it and read just after:
   14    the port's benchmark: the runner (snappytpu_torch.bench.run) in
         process on the 32 MB mixed corpus (3 reps, fast headline, dense
         companion), its ratios held to phase 5's; then
-        `python -m snappytpu_torch.bench.run` once as a subprocess (1 rep),
-        its last stdout line parsed and its keys checked
+        `python -m snappytpu_torch.bench.run` once as a subprocess at its
+        defaults (the 128 MB Silesia stand-in, then the 32 MB mixed
+        companion; 1 rep), its last stdout line parsed: bench.py's keys and
+        the mixed32_* keys, and the companion's ratio phase 5's
   15    the mesh path: make_mesh(1) on cuda:0; the config-4 check (100 MB of
         text through encode_mesh/decode_mesh, dense, equal to api.compress on
         the card and round-tripped); the same input staged once as
@@ -67,12 +69,16 @@ set to 0 just before it and read just after:
         make_mesh past the card count raises; two manifest shards with the
         default encoder on the card, assembled, equal to api.compress;
         entry()'s function on the card equal to its CPU result;
-        dryrun_multichip(1); the mesh sweep at two sizes; then, outside
-        the path's counts, config 4's encode and decode taken apart into
-        copies in, device calls and copies out (CUDA events)
+        dryrun_multichip(1); the mesh sweep at two sizes and a 32 MB
+        Silesia-stand-in point; then, outside the path's counts, config 4's
+        encode and decode taken apart into copies in, device calls and
+        copies out (CUDA events); then the mesh tools with their own counts
+        (path mesh_tools): mesh_device_bench (both profiles) and
+        mesh_stage_probe (fast) at the JAX tools' sizes, direct calls
+        against a one-card mesh on the same resident batches
   16    the encoder tools (snappytpu_torch.tools) in process at the JAX
         tools' sizes, after K1 on the encoder's own sections at nsec 16, 32
-        and 128
+        and 128; bigfile_bench's 128 MB stand-in at phase 14's fast ratio
   17    the research path: phase 5's 512 blocks through the v1 encoder
         (encode_blocks, dense tiers) and encode_pipeline (fast, dense), in
         calls of 128; the dense pipeline's rows equal encode_blocks' on the
@@ -117,7 +123,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 BATCH = 128
 MAIN_MB = 32
 WIN_MB = 8  # the windowed path's stream: 128+ chunks, so two K4 calls of 64
-BIG_MB = 128  # bigfile_bench's input in phase 16: the tool's default
+BIG_MB = 128  # bigfile_bench's input in phase 16: the tool's default, the runner's
+SWEEP_REAL_MB = 32  # the mesh sweep's Silesia-stand-in point in phase 15
 # a kernel's entries beyond the contract's keys: K3's and K6's CUDA kernels
 # and other sources, K3's and K4's launches of each of their two CUDA
 # kernels on their paths and those per call, K3's and K6's most resolver
@@ -580,11 +587,12 @@ def profiling_path(dev) -> tuple[dict, dict]:
     return kernels, launches
 
 
-def bench_path(dev, kind: str, results: dict) -> dict:
+def bench_path(dev, kind: str, results: dict) -> tuple[dict, dict]:
     """Phase 14: the runner's measuring function in process (32 MB mixed,
     3 reps, fast headline, dense companion) with the launch counts at 0,
-    its ratios held to phase 5's; then the runner once as a subprocess.
-    Returns the launch counts of the path."""
+    its ratios held to phase 5's; then the runner once as a subprocess at
+    its defaults.  Returns (the launch counts of the path, the subprocess's
+    JSON line)."""
     from snappytpu_torch.bench import run as bench_run
 
     zero_counts()
@@ -614,12 +622,22 @@ def bench_path(dev, kind: str, results: dict) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"python -m snappytpu_torch.bench.run exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     line = json.loads(proc.stdout.strip().splitlines()[-1])
-    if tuple(line) != bench_run.KEYS or (line["backend"], line["device_name"]) != ("cuda", kind) \
-            or (line["ratio"], line["companion_ratio"]) != want:
-        raise AssertionError(f"the runner's line is not as expected: {line}")
-    log(f"[14 bench] python -m snappytpu_torch.bench.run (1 rep, {time.perf_counter() - t0:.1f} s): its last line "
-        f"has the {len(line)} keys, backend cuda, the card's name and phase 5's ratios: {json.dumps(line)}")
-    return launches
+    if tuple(line) != bench_run.SILESIA_KEYS or (line["corpus"], line["input_mb"]) != ("silesia", 128) \
+            or (line["backend"], line["device_name"]) != ("cuda", kind) or line["mixed32_ratio"] != want[0]:
+        raise AssertionError(f"the runner's line is not as expected: {json.dumps(line)}")
+    for msg in proc.stderr.splitlines():
+        if "stand-in" in msg or "companion run" in msg:
+            log(f"[14 bench] runner's stderr: {msg}")
+    log(f"[14 bench] python -m snappytpu_torch.bench.run at its defaults (1 rep, {time.perf_counter() - t0:.1f} s): "
+        f"its last line has bench.py's {len(bench_run.KEYS)} keys then the {len(bench_run.MIXED32_KEYS)} mixed32_* "
+        f"keys, corpus silesia at 128 MB, backend cuda, the card's name, and phase 5's fast ratio as mixed32_ratio: "
+        f"{json.dumps(line)}")
+    log(f"[14 bench] 128 MB silesia stand-in (1 rep): encode {line['encode_gbps'] * 1e3:.1f} MB/s fast, "
+        f"{line['companion_encode_gbps'] * 1e3:.1f} dense, decode {line['decode_gbps'] * 1e3:.1f} MB/s, combined "
+        f"{line['value'] * 1e3:.1f} MB/s, ratio {line['ratio']} / {line['companion_ratio']}; 32 MB mixed companion: "
+        f"encode {line['mixed32_encode_gbps'] * 1e3:.1f} MB/s, decode {line['mixed32_decode_gbps'] * 1e3:.1f} MB/s, "
+        f"combined {line['mixed32_gbps'] * 1e3:.1f} MB/s")
+    return launches, line
 
 
 def mesh_split(dev, mesh, blocks, lens, comp, totals, e_wall: float) -> None:
@@ -802,8 +820,11 @@ def mesh_path(dev) -> dict:
     entry.dryrun_multichip(1)
 
     with tempfile.TemporaryDirectory() as tmp:
-        rows = sweep.run_sweep(tmp, sizes=[100_000, 1_000_000], reps=2, mesh=True, device="cuda")
+        rows = sweep.run_sweep(tmp, sizes=[100_000, 1_000_000], reps=2, real_file_mb=SWEEP_REAL_MB, mesh=True,
+                               device="cuda")
         names = sorted(os.listdir(tmp))
+    if (rows[-2].input_size, rows[-1].output_size) != (SWEEP_REAL_MB << 20,) * 2:
+        raise AssertionError(f"the sweep's last point is not the {SWEEP_REAL_MB} MB stand-in: {rows[-2:]}")
     for r in rows:
         log(f"[15 sweep] mesh1 dense {r.phase} {r.input_size} -> {r.output_size} B: {r.time_taken * 1e3:.3f} ms, "
             f"{r.speed_mbps:.1f} MB/s")
@@ -813,6 +834,29 @@ def mesh_path(dev) -> dict:
     if min(launches["concat"], launches["decode_block"]) <= 0:
         raise AssertionError(f"a kernel of the mesh path never launched: {launches}")
     mesh_split(dev, mesh, blocks, lens, comp, totals, c4["encode_s"] * 1e3)
+    return launches
+
+
+def mesh_tools_path() -> dict:
+    """Phase 15's mesh tools with the launch counts at 0: mesh_device_bench
+    for both profiles and mesh_stage_probe (fast) at the JAX tools' sizes
+    (128 blocks, 4 batches), each direct call against a one-card mesh on
+    the same resident batches; the tools raise if the mesh's outputs
+    differ.  Returns the launch counts."""
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for profile in ("fast", "dense"):
+            run_tool("mesh_device_bench", ["--out", tmp, "--profile", profile], phase=15)
+        for path in sorted(glob.glob(os.path.join(tmp, "*.csv"))):
+            with open(path, newline="") as f:
+                (row,) = csv.DictReader(f)
+            log(f"[15 mesh_tools] {os.path.basename(path)}: {row['input_size']} -> {row['output_size']} B in "
+                f"{float(row['time_taken']) * 1e3:.2f} ms, backend {row['backend']}")
+    run_tool("mesh_stage_probe", ["--profile", "fast"], phase=15)
+    launches = read_counts()
+    log(f"[15 mesh_tools] kernel launches on the path: {launches}")
+    if min(launches["concat"], launches["decode_block"]) <= 0:
+        raise AssertionError(f"a kernel of the mesh tools' path never launched: {launches}")
     return launches
 
 
@@ -830,26 +874,28 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_tool(name: str, argv: list) -> list:
+def run_tool(name: str, argv: list, phase: int = 16) -> list:
     """A tool's main(argv) in process (errors propagate) -> its stdout lines."""
     import importlib
 
     mod = importlib.import_module(f"snappytpu_torch.tools.{name}")
-    log(f"[16 {name}] main({argv})")
+    log(f"[{phase} {name}] main({argv})")
     t0 = time.perf_counter()
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         rc = mod.main(argv)
     if rc != 0:
         raise AssertionError(f"{name}.main returned {rc}")
-    log(f"[16 {name}] {time.perf_counter() - t0:.1f} s")
+    log(f"[{phase} {name}] {time.perf_counter() - t0:.1f} s")
     return tee.buf.getvalue().splitlines()
 
 
-def encoder_tools_path(dev) -> tuple[dict, dict]:
+def encoder_tools_path(dev, silesia_ratio: float) -> tuple[dict, dict]:
     """Phase 16: K1 at the emit's other section counts, then the encoder
-    tools in process with the launch counts at 0 (see the module docstring).
-    Returns (K1's measurements at those counts, launch counts of the path)."""
+    tools in process with the launch counts at 0 (see the module docstring);
+    bigfile_bench's fast ratio must be silesia_ratio, the runner's on the
+    same stand-in.  Returns (K1's measurements at those counts, launch
+    counts of the path)."""
     import re
 
     from snappytpu_torch.kernels import concat, encode_v2
@@ -925,6 +971,13 @@ def encoder_tools_path(dev) -> tuple[dict, dict]:
             log(f"[16 dist_bench] {os.path.basename(path)}, median ms a run: "
                 + ", ".join(f"{s} B {m * 1e3:.3f}" for s, m in med.items()))
         run_tool("bigfile_bench", ["--out", tmp, "--mb", str(BIG_MB)])
+        with open(os.path.join(tmp, "compression_results_device_fast.csv"), newline="") as f:
+            (row,) = csv.DictReader(f)
+        ratio = round(int(row["input_size"]) / int(row["output_size"]), 4)
+        if (int(row["input_size"]), ratio) != (BIG_MB << 20, silesia_ratio):
+            raise AssertionError(f"bigfile_bench's fast row {row} is not phase 14's {BIG_MB} MB stand-in at ratio "
+                                 f"{silesia_ratio}")
+        log(f"[16 bigfile_bench] the {BIG_MB} MB silesia stand-in's fast ratio {ratio} equals the runner's in phase 14")
         log(f"[16 tools] wrote {sorted(os.listdir(tmp))}")
     launches = read_counts()
     log(f"[16 encoder_tools] kernel launches on the path: {launches}")
@@ -1701,17 +1754,18 @@ def main() -> int:
 
     # ---- 14. the port's benchmark ----
     t0 = time.perf_counter()
-    paths["bench"] = bench_path(dev, kind, results)
+    paths["bench"], bench_line = bench_path(dev, kind, results)
     log(f"[14 bench] phase time {time.perf_counter() - t0:.1f} s")
 
     # ---- 15. the mesh path ----
     t0 = time.perf_counter()
     paths["mesh"] = mesh_path(dev)
+    paths["mesh_tools"] = mesh_tools_path()
     log(f"[15 mesh] phase time {time.perf_counter() - t0:.1f} s")
 
     # ---- 16. the encoder tools ----
     t0 = time.perf_counter()
-    k1_sections, paths["encoder_tools"] = encoder_tools_path(dev)
+    k1_sections, paths["encoder_tools"] = encoder_tools_path(dev, bench_line["ratio"])
     kernels["concat"].update(sections_ms=k1_sections["sections_ms"],
                              sections_bound_ms=k1_sections["sections_bound_ms"])
     log(f"[16 encoder_tools] phase time {time.perf_counter() - t0:.1f} s")

@@ -5,9 +5,10 @@ bytes, incompressible random, English-like text, binary image) plus its
 500 B..1 MB size sweep (snappy_test.c:7, :93-104).  The reference's fixture
 files are not checked in anywhere (snappy_test.c:85-87), so we generate
 equivalents deterministically.  The port's copy of snappytpu/bench/corpus.py,
-byte for byte in every generator; the loaders of the reference checkout's
-files (silesia_standin, reference_files) are left out, as the port has no
-use for them.
+byte for byte in every generator.  The JAX corpus's loader of the reference
+checkout's real files (reference_files) is left out: those files are not in
+the repository, and the port reads nothing outside its own checkout, so the
+Silesia stand-in is the JAX one's fallback, mixed(target_bytes, seed=99).
 """
 
 from __future__ import annotations
@@ -99,3 +100,10 @@ def size_sweep(seed: int = 0) -> dict[str, bytes]:
     """The reference's 500 B .. 1 MB size grid (snappy_test.c:7)."""
     sizes = [500, 1000, 5000, 10000, 50000, 100000, 500000, 1000000]
     return {f"mixed_{s}": mixed(s, seed=seed + s) for s in sizes}
+
+
+def silesia_standin(target_bytes: int = 200 << 20) -> bytes:
+    """The Silesia stand-in (BASELINE config 3): the JAX corpus's
+    silesia_standin where the reference checkout is absent, that is the
+    synthetic mixed(target_bytes, seed=99), not real files."""
+    return mixed(target_bytes, seed=99)

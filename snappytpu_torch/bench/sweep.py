@@ -4,17 +4,18 @@ counterpart of snappytpu.bench.sweep.
 The reference's Test_results/ holds 4 repeated-run CSV series (hash, alt,
 BST compressors and decompression) over a 500 B..1 MB size grid
 (snappy_test.c:7, result.c:67-95).  This module reproduces that shape for
-any backend/profile so new numbers are directly comparable, and adds a
---mesh mode that measures the block-parallel mesh codec
-(snappytpu_torch.mesh.sharding) over every visible card, or over
---mesh-shards slots of the one CPU device: sharding overhead as a number.
-The mesh encodes with --profile, as its series' tag says (the JAX sweep's
-mesh mode encoded dense whatever the tag).
+any backend/profile so new numbers are directly comparable, and adds:
+
+  * a large REAL-file point (--real-file-mb: the Silesia stand-in from
+    corpus.silesia_standin, BASELINE config 3) after the size grid,
+  * a --mesh mode that measures the block-parallel mesh codec
+    (snappytpu_torch.mesh.sharding) over every visible card, or over
+    --mesh-shards slots of the one CPU device: sharding overhead as a
+    number.  The mesh encodes with --profile, as its series' tag says (the
+    JAX sweep's mesh mode encoded dense whatever the tag).
 
 The `device` backend and the mesh run on --device (default cuda; they
-refuse to run without a card unless the caller names the CPU).  The JAX
-sweep's --real-file-mb point reads the Silesia stand-in, whose files the
-port's bench/corpus.py leaves out (F2 in ROADMAP.md): it raises here.  The
+refuse to run without a card unless the caller names the CPU).  The
 caller names the output directory (the JAX sweep defaulted to
 Test_results_tpu/, which holds the TPU's history).
 
@@ -109,14 +110,12 @@ def _best_of(fn, reps):
 def run_sweep(out_dir: str, backend: str = "cpu", profile: str = "dense", reps: int = 5,
               sizes=SIZES, real_file_mb: int = 0, mesh: bool = False, n_hosts: int = 1,
               *, device="cuda", mesh_shards: int | None = None) -> list[Result]:
-    """Compress and decompress mixed-corpus inputs of each size (best of
-    reps), appending a row per phase to compression_results_<tag>.csv and
+    """Compress and decompress mixed-corpus inputs of each size, then the
+    Silesia stand-in of real_file_mb MB when it is nonzero (best of reps
+    each), appending a row per phase to compression_results_<tag>.csv and
     decompression_results_<tag>.csv under out_dir; round trips asserted.
     mesh_shards: the mesh's width (default every visible card, or one CPU
     slot)."""
-    if real_file_mb:
-        raise ValueError("--real-file-mb needs the Silesia stand-in, whose reference-checkout files are absent "
-                         "(F2 in ROADMAP.md) and which the port's bench/corpus.py leaves out")
     os.makedirs(out_dir, exist_ok=True)
     n_chips = 1
     if mesh:
@@ -128,9 +127,12 @@ def run_sweep(out_dir: str, backend: str = "cpu", profile: str = "dense", reps: 
     comp_csv = os.path.join(out_dir, f"compression_results_{tag}.csv")
     dec_csv = os.path.join(out_dir, f"decompression_results_{tag}.csv")
 
+    inputs = [(size, corpus.mixed(size, seed=size)) for size in sizes]
+    if real_file_mb:
+        inputs.append((real_file_mb << 20, corpus.silesia_standin(real_file_mb << 20)))
+
     results = []
-    for size in sizes:
-        data = corpus.mixed(size, seed=size)
+    for size, data in inputs:
         compress(data)  # warm (allocator, native library)
         comp, best_c = _best_of(lambda: compress(data), reps)
         r = Result("compress", size, len(comp), best_c, backend, n_chips, n_hosts)
@@ -154,7 +156,7 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--out", required=True, help="directory for the CSV series")
     p.add_argument("--real-file-mb", type=int, default=0,
-                   help="a Silesia-stand-in point of this many MB: refused (its files are absent)")
+                   help="append a Silesia-stand-in point of this many MB")
     p.add_argument("--mesh", action="store_true",
                    help="measure the mesh codec over every visible card (or --mesh-shards)")
     p.add_argument("--mesh-shards", type=int, default=None, help="the mesh's width")

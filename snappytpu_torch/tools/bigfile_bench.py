@@ -7,9 +7,9 @@ device.
     python -m snappytpu_torch.tools.bigfile_bench --out DIR [--mb 128]
         [--profiles dense,fast] [--device cuda]
 
-The input is corpus.mixed(MB << 20, seed=99): what the JAX tool's
-corpus.silesia_standin gives where the reference checkout's real files are
-absent (the port's corpus keeps no loader for them).  It is staged once as
+The input is corpus.silesia_standin(MB << 20), as in the JAX tool: the
+synthetic corpus.mixed(MB << 20, seed=99), as the JAX one's is without the
+reference checkout.  It is staged once as
 batches of 128 blocks (the last one shorter when the input is not a
 multiple of 8 MiB); the encoder's rows stay on the device for the decode.
 The round trip is checked there: every block's ok flag and every block
@@ -52,8 +52,8 @@ def main(argv=None) -> int:
     log = make_log()
     os.makedirs(args.out, exist_ok=True)
 
-    log(f"device {dev}; building {args.mb} MB mixed corpus (seed 99)")
-    data = np.frombuffer(corpus.mixed(args.mb << 20, seed=99), np.uint8)
+    log(f"device {dev}; building {args.mb} MB silesia stand-in")
+    data = np.frombuffer(corpus.silesia_standin(args.mb << 20)[: args.mb << 20], np.uint8)
     blocks_np, lens_np = framing.pack_blocks(data)
     B = blocks_np.shape[0]
     starts = range(0, B, CHUNK)

@@ -149,6 +149,25 @@ def test_enc_sizes_without_reference(tmp_path, capsys):
             assert sizes[name][col] == len(encode_varint(len(fix[name]))) + total, (name, dense)
 
 
+def test_enc_sizes_real_dir_takes_six_files(tmp_path):
+    """--real-dir adds the directory's first six files by name, those above
+    1 KiB, cut to 256 KiB: the JAX tool's rule for the reference checkout's
+    files, which are not in the repository, so without it no real file."""
+    real = tmp_path / "real"
+    real.mkdir()
+    sizes = {"f0": 300_000, "f1": 1024, "f2": 2000, "f3": 1025}
+    for i, (name, size) in enumerate(sizes.items()):
+        (real / name).write_bytes(jcorpus.random_bytes(size, seed=i))
+    for name in ("g0", "g1", "g2"):
+        (real / name).write_bytes(jcorpus.text(5000, seed=7))
+    (real / "sub").mkdir()  # a directory: skipped
+    got = {k: v for k, v in enc_sizes.fixtures(str(real)).items() if k.startswith("real:")}
+    assert sorted(got) == ["real:f0", "real:f2", "real:f3", "real:g0", "real:g1"]  # f1 has 1 KiB; g2 is seventh
+    assert got["real:f0"] == jcorpus.random_bytes(300_000, seed=0)[:262144]
+    assert got["real:g1"] == jcorpus.text(5000, seed=7)
+    assert not [k for k in enc_sizes.fixtures() if k.startswith("real:")]
+
+
 SMALL = {"one_byte": b"A", "text": jcorpus.text(3000, seed=4), "rnd": jcorpus.random_bytes(2000, seed=5)}
 
 
@@ -233,6 +252,23 @@ def test_bigfile_bench_rows_and_round_trip(tmp_path, capsys):
     (drow,) = _rows(out_dir / "decompression_results_device_fast.csv")
     assert crow[:2] == [str(1 << 20), str(want)] and crow[-2:] == ["compress", "cpu"]
     assert drow[:2] == [str(want), str(1 << 20)] and drow[-2:] == ["decompress", "cpu"]
+
+
+def test_bigfile_bench_reads_the_silesia_standin(tmp_path, monkeypatch):
+    """Its input is corpus.silesia_standin(MB << 20), cut to MB << 20."""
+    calls = []
+
+    def standin(n):
+        calls.append(n)
+        return jcorpus.mixed(n, seed=5) + b"past the end"
+
+    monkeypatch.setattr(bigfile_bench.corpus, "silesia_standin", standin)
+    out_dir = tmp_path / "big"
+    assert bigfile_bench.main(["--device", "cpu", "--out", str(out_dir), "--mb", "1", "--profiles", "fast"]) == 0
+    assert calls == [1 << 20]
+    (crow,) = _rows(out_dir / "compression_results_device_fast.csv")
+    (drow,) = _rows(out_dir / "decompression_results_device_fast.csv")
+    assert crow[0] == drow[1] == str(1 << 20)
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))

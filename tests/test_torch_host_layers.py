@@ -228,6 +228,15 @@ def test_corpus_fixture_sets():
     assert corpus.size_sweep(3) == jax_corpus.size_sweep(3)
 
 
+@pytest.mark.parametrize("n", [1, 65_537, 1 << 20])
+def test_silesia_standin(monkeypatch, n):
+    """The JAX stand-in without the reference checkout's files, which are
+    not in the repository: mixed(n, seed=99)."""
+    monkeypatch.setattr(jax_corpus, "reference_files", lambda limit_bytes=0: {})
+    got = corpus.silesia_standin(n)
+    assert got == jax_corpus.silesia_standin(n) == corpus.mixed(n, seed=99) and len(got) == n
+
+
 RESULTS = [
     dict(phase="compress", input_size=1 << 20, output_size=400_000, time_taken=0.0123),
     dict(phase="decompress", input_size=400_000, output_size=1 << 20, time_taken=0.002, backend="cpu"),

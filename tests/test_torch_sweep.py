@@ -1,9 +1,10 @@
 """The port's CSV size sweep (snappytpu_torch.bench.sweep) on the CPU at
-sizes 500 and 5000: the `device` backend, the native `cpu` backend and the
-mesh over two CPU shards write the JAX sweep's CSV series (same file names,
-header and columns), round trips asserted.  The `cpu` backend's rows equal
-the JAX sweep's in every column that is not a time; the device backend's
-and the mesh's sizes equal the port API's streams."""
+sizes 500 and 5000, and with a 1 MB Silesia-stand-in point: the `device`
+backend, the native `cpu` backend and the mesh over two CPU shards write
+the JAX sweep's CSV series (same file names, header and columns), round
+trips asserted.  The `cpu` backend's rows equal the JAX sweep's in every
+column that is not a time; the device backend's and the mesh's sizes equal
+the port API's streams."""
 
 import csv
 import os
@@ -66,9 +67,32 @@ def test_cpu_series_equal_the_jax_sweep(tmp_path):
             assert {k: v for k, v in g.items() if k not in TIMES} == {k: v for k, v in w.items() if k not in TIMES}
 
 
-def test_real_file_point_is_refused(tmp_path):
-    with pytest.raises(ValueError, match="F2"):
-        sweep.run_sweep(str(tmp_path), sizes=SIZES, real_file_mb=1)
+def test_cpu_series_with_a_real_file_point_equal_the_jax_sweep(tmp_path):
+    if not cpu.available:
+        pytest.skip("the native runtime needs g++")
+    mine, theirs = tmp_path / "port", tmp_path / "jax"
+    sweep.run_sweep(str(mine), backend="cpu", sizes=[500], reps=1, real_file_mb=1)
+    jax_sweep.run_sweep("cpu", "dense", 1, str(theirs), sizes=[500], real_file_mb=1)
+    for name in os.listdir(theirs):
+        got, want = _rows(mine / name), _rows(theirs / name)
+        size = "input_size" if name.startswith("compression") else "output_size"
+        assert [int(r[size]) for r in got] == [int(r[size]) for r in want] == [500, 1 << 20]
+        for g, w in zip(got, want):
+            assert {k: v for k, v in g.items() if k not in TIMES} == {k: v for k, v in w.items() if k not in TIMES}
+
+
+@pytest.mark.parametrize("kw,tag", [
+    (dict(backend="device", profile="fast"), "device_fast"),
+    (dict(mesh=True, mesh_shards=2, profile="fast"), "mesh2_fast"),
+], ids=["device", "mesh"])
+def test_real_file_point_on_the_device_and_the_mesh(tmp_path, kw, tag):
+    """The stand-in's point comes after the grid, its stream the port API's."""
+    sweep.run_sweep(str(tmp_path), sizes=[500], reps=1, real_file_mb=1, device="cpu", **kw)
+    comp_rows, dec_rows = (_rows(p) for p in _series(tmp_path, tag))
+    stream = api.compress(corpus.silesia_standin(1 << 20), "fast", device="cpu")
+    assert [int(r["input_size"]) for r in comp_rows] == [500, 1 << 20]
+    assert (int(comp_rows[1]["output_size"]), int(dec_rows[1]["input_size"])) == (len(stream), len(stream))
+    assert int(dec_rows[1]["output_size"]) == 1 << 20
 
 
 def test_the_caller_names_the_directory():
