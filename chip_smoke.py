@@ -48,10 +48,14 @@ set to 0 just before it and read just after:
         (two or more K4 calls of 64 chunks, and no chunk refused to the
         host decoder)
   12    the decode profiling path (snappytpu_torch.tools) at the JAX tools'
-        sizes: T2 (decode anatomy), T3 (tape probe) and T1 (scalar probes)
-        against their plain versions, then dec_profile's four decoders,
-        T2's variants and T3's modes on four 128-block sets of text and
-        mixed, and T1's 16 probes at N = 200,000, timed
+        sizes: T2 (decode anatomy: K2 with its mover swapped per variant),
+        T3 (tape probe: K5 with one part changed per mode) and T1 (scalar
+        probes) against their plain versions (set 0 of each corpus, a hand
+        tape, 32 mutated blocks), then dec_profile's four decoders, T2's
+        variants and T3's modes on four 128-block sets of text and mixed,
+        and T1's 16 probes at N = 200,000, timed; T2 full beside K2, T2
+        parse beside K4a's parse (the hand-over), T3 full-D1 beside K5, and
+        K2's and K5's splits
   14    the port's benchmark: the runner (snappytpu_torch.bench.run) in
         process on the 32 MB mixed corpus (3 reps, fast headline, dense
         companion), its ratios held to phase 5's; then
@@ -472,10 +476,13 @@ def profiling_path(dev) -> tuple[dict, dict]:
     sets, four per corpus, dense profile, text and mixed).  First each of
     T1-T3 is held against its plain version, exactly; then, with the launch
     counts at 0, the path runs: dec_profile's four decoders, T2's variants
-    and T3's modes on all sets, T1's 16 probes at N = 200,000.  Returns
-    (kernels entries, launch counts of the path)."""
+    and T3's modes on all sets (with K4a's parse, to split T2's parse from
+    its hand-over), T1's 16 probes at N = 200,000.  T2 full (K2 with the
+    probe's outputs) and T3 full-D1 (K5) are printed beside K2's and K5's
+    dec_profile times.  Returns (kernels entries, launch counts of the
+    path)."""
     from snappytpu_torch.format.constants import MAX_BLOCK_SIZE as BS
-    from snappytpu_torch.kernels import decode_tape, decode_vm4
+    from snappytpu_torch.kernels import decode_tape, decode_vm2, decode_vm4
     from snappytpu_torch.tools import _staged, dec_anatomy, dec_profile, probe_scalar, tape_probe
 
     corpora = ("text", "mixed")
@@ -532,6 +539,36 @@ def profiling_path(dev) -> tuple[dict, dict]:
             raise AssertionError(f"T3 {mode} differs from K5's plain walk on the hand tape of in-step hazards")
     log("[12 check] T3's exact modes equal K5's plain walk on the hand tape whose records read and rewrite "
         "each other's bytes within a step")
+    # blocks that are not ok: text set 0's first 32 rows with a byte flipped,
+    # comp_len one short, a wrong out_len, and a pad block
+    c, t, n = (a[:32].cpu().numpy().copy() for a in staged["text"][0])
+    rng = np.random.default_rng(12)
+    m = len(t)
+    for i in range(1, m - 1):
+        if i % 3 == 0:
+            c[i, int(rng.integers(0, t[i]))] ^= int(rng.integers(1, 256))
+        elif i % 3 == 1:
+            t[i] -= 1
+        else:
+            n[i] = int(rng.integers(0, BS + 1))
+    c[m - 1], t[m - 1], n[m - 1] = 0, 0, 0
+    bad = tuple(torch.from_numpy(a) for a in (c, t, n))
+    ref = dec_anatomy.walk_ref(*bad)
+    for v in dec_anatomy.VARIANTS:
+        err = max_err(dec_anatomy.anatomy(v, *(a.to(dev) for a in bad)), ref[v])
+        if err != 0:
+            raise AssertionError(f"T2 {v} differs from its plain walk on mutated blocks (max abs err {err})")
+    tapes, nrecs = decode_tape.build_tapes(c, t, n)
+    bad = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (tapes, nrecs, c))
+    exact = decode_tape.run_tape_ref(*bad)
+    zero_aux = torch.zeros((len(nrecs), tape_probe.AUX), dtype=torch.int32)
+    for mode in tape_probe.MODES:
+        ref = (*exact, zero_aux) if mode in tape_probe.EXACT else tape_probe.probe_ref(mode, *bad)
+        err = max_err(tape_probe.probe(mode, *(a.to(dev) for a in bad)), ref)
+        if err != 0:
+            raise AssertionError(f"T3 {mode} differs from its plain version on mutated blocks (max abs err {err})")
+    log(f"[12 check] {m} text blocks, {int((~ref[1]).sum())} of them refused (a byte flipped, comp_len one short, a "
+        f"wrong out_len; a pad): T2's variants equal the plain walk and T3's modes their plain versions")
     for p in probe_scalar.SMOKE:
         inp = probe_scalar.inputs(p)
         tile, _clk = probe_scalar.run(p, torch.from_numpy(inp).to(dev), probe_scalar.N)
@@ -548,20 +585,31 @@ def profiling_path(dev) -> tuple[dict, dict]:
     # the path, with the counts at 0
     zero_counts()
     mbs = BATCH * (1 << 16) / 1e6
+    dp = {}
     for vm in ("dispatch", "2", "4", "tape"):
         cells = []
         for w in corpora:
-            sec = dec_profile.profile(vm, taped[w] if vm == "tape" else staged[w])
+            dp[vm, w] = sec = dec_profile.profile(vm, taped[w] if vm == "tape" else staged[w])
             cells.append(f"{w} {sec * 1e3:.4f} ms/batch {mbs / sec:.1f} MB/s")
         log(f"[12 dec_profile] vm={vm}: " + "; ".join(cells))
     t2_ms, t3_ms = {}, {}
     for w in corpora:
         t2_ms[w] = ms = {v: dec_anatomy.anatomy_ms(v, staged[w]) for v in dec_anatomy.VARIANTS}
-        log(f"[12 T2] {w} ms/batch: " + ", ".join(f"{v} {m:.4f}" for v, m in ms.items()) + "; attribution: "
-            + ", ".join(f"{k} {m:.4f}" for k, m in dec_anatomy.attribution(ms).items()))
+        log(f"[12 T2] {w} ms/batch: " + ", ".join(f"{v} {m:.4f}" for v, m in ms.items()) + "; K2's split: "
+            + ", ".join(f"{k} {m:.4f}" for k, m in dec_anatomy.k2_split(ms).items()))
+        k2, k4a = dp["4", w] * 1e3, _staged.best_per_batch(decode_vm2._parse_blocks, staged[w]) * 1e3
+        log(f"[12 T2 vs K2] {w}: T2 full {ms['full']:.4f} ms/batch, K2 (dec_profile vm=4) {k2:.4f}: ratio "
+            f"{ms['full'] / k2:.4f} ({'within' if abs(ms['full'] / k2 - 1) <= 0.1 else 'OUTSIDE'} ±10 %); T2 parse "
+            f"{ms['parse']:.4f} against K4a's parse (sizer and judge, records to device memory) {k4a:.4f}: the "
+            f"hand-over to the mover {ms['parse'] - k4a:.4f}; K2 waits on its mover for {k2 - ms['parse']:.4f} "
+            f"(K2 - parse)")
     for w in corpora:
         t3_ms[w] = ms = {m: tape_probe.probe_ms(m, taped[w]) for m in tape_probe.MODES}
         log(f"[12 T3] {w} ms/batch: " + ", ".join(f"{m} {v:.4f}" for m, v in ms.items()))
+        k5 = dp["tape", w] * 1e3
+        log(f"[12 T3 vs K5] {w}: full-D1 (K5 exactly) {ms['full-D1']:.4f} ms/batch, K5 (dec_profile vm=tape) "
+            f"{k5:.4f}: ratio {ms['full-D1'] / k5:.4f} ({'within' if abs(ms['full-D1'] / k5 - 1) <= 0.1 else 'OUTSIDE'} "
+            f"±10 %); K5's split: " + ", ".join(f"{k} {m:.4f}" for k, m in tape_probe.k5_split(ms).items()))
     t1_ms = 0.0
     for p in probe_scalar.SMOKE:
         m = probe_scalar.measure(p, dev, probe_scalar.N)

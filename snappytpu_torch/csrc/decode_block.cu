@@ -48,8 +48,9 @@
 //     in the resolver's order and K3 needs no walk.  ok = the parse's ok
 //     and every byte resolved within 17 rounds (16 always suffice).
 // The op-by-op walk that K3 ran until it was redesigned stays in
-// decode_block.cuh (decode_block, WarpMover): the anatomy probe T2
-// (dec_anatomy.cu) dissects it.
+// decode_block.cuh (decode_block) as the host tests' statement of the
+// accept set; no kernel runs it.  The anatomy probe T2 (dec_anatomy.cu)
+// dissects K2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

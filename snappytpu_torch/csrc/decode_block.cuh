@@ -21,7 +21,7 @@
 // decode_vm2.py `_block_loop.parse_at`).  Lengths outside the row (comp_len not in
 // [0, 73728], out_len not in [0, 65536]) report not ok.  The rules
 // (op_rules) are written once, over the cursors' width: 64-bit in this
-// header's op-by-op walk (T2), 32-bit in the pipelined walk of
+// header's op-by-op walk (the host tests' statement of the accept set), 32-bit in the pipelined walk of
 // decode_pipe.cuh (K2, K3, K4), where every value fits: ip <= 73728 + 64 (a
 // window may look past comp_len), opc + ctx_len <= 131072, and
 // ip + hdr + len < 2^31 because a 4-byte literal length is at most 2^30.
@@ -43,7 +43,7 @@ constexpr int64_t kBlockSize = 65536;  // output bytes per block
 constexpr int64_t kPadOut = 73728;     // compressed row bytes per block
 
 // An op: Int is the width of the cursors, int64_t in this header's walk
-// (T2) and int32_t in the pipelined walk of decode_pipe.cuh (K2, K3, K4).
+// and int32_t in the pipelined walk of decode_pipe.cuh (K2, K3, K4).
 template <class Int>
 struct OpT {
   Int hdr;   // header bytes (tag + length/offset bytes)
@@ -129,37 +129,5 @@ SNAPPY_HD bool decode_block(const uint8_t* row, int64_t comp_len, int64_t out_le
   }
   return ip == comp_len && opc == out_len;
 }
-
-#ifdef __CUDACC__
-// Moves one op's bytes with the 32 lanes of a warp: the op-by-op walk's
-// mover (K3's until K3 moved onto decode_resolve.cuh), the `full` variant
-// of the anatomy probe T2 (dec_anatomy.cu).  The methods are __host__ __device__ only so that the
-// shared decode loop instantiates; the host side is never called.
-struct WarpMover {
-  const uint8_t* comp;
-  uint8_t* out;
-  int lane;
-
-  __host__ __device__ void literal(int64_t opc, int64_t src, int64_t len) {
-#ifdef __CUDA_ARCH__
-    for (int64_t j = lane; j < len; j += 32) out[opc + j] = comp[src + j];
-    __syncwarp();
-#endif
-  }
-
-  __host__ __device__ void copy(int64_t opc, int64_t dist, int64_t len) {
-#ifdef __CUDA_ARCH__
-    const uint8_t* from = out + opc - dist;
-    if (dist >= len) {
-      for (int64_t j = lane; j < len; j += 32) out[opc + j] = from[j];
-    } else {
-      const int d = static_cast<int>(dist);
-      for (int j = lane; j < len; j += 32) out[opc + j] = from[j % d];
-    }
-    __syncwarp();
-#endif
-  }
-};
-#endif  // __CUDACC__
 
 }  // namespace snappy_block

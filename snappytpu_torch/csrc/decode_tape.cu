@@ -42,7 +42,7 @@
 // whole image in the same kernel: the same function on other inputs,
 // decided on the card per block, with the same rows and flags as the
 // resolver would give where both are exact.  The tape probe T3
-// (tape_probe.cu) dissects that walk.  rounds[b] is the resolver's round
+// (tape_probe.cu) dissects K5.  rounds[b] is the resolver's round
 // count, or -1 for a block that ran the walk.
 
 #include <cuda_runtime.h>

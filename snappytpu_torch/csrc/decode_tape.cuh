@@ -167,8 +167,7 @@ SNAPPY_HD bool produce_tape(W& w, int32_t nrecs, Load& load, Sink& sink) {
 
 #ifdef __CUDACC__
 // The record walk's fetch and move: K6's for a tape out of ascending order
-// (decode_tape.cu; K5's walk until the producer above took its place), also
-// the `full-D1` mode of the tape probe T3 (tape_probe.cu).  Records r..r+31 are loaded by the 32 lanes when
+// (decode_tape.cu; K5's walk until the producer above took its place).  Records r..r+31 are loaded by the 32 lanes when
 // r reaches a multiple of 32; record r is then shuffled from lane r % 32.
 // The tape is walked in order, so every lane calls this with the same r.
 // __host__ __device__ only so that the shared walk instantiates; the host

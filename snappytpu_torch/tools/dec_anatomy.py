@@ -1,19 +1,19 @@
 """Decode anatomy probe (T2) — the counterpart of the JAX package's
-tools/dec_anatomy.py: times stripped variants of the block decoder's op walk
-(K3's until its resolver, one op at a time; K2 pipelines the same rules) to
-attribute its per-batch time to the parse, the window read, the write and
-dynamic addressing.
+tools/dec_anatomy.py: times K2, the block decoder that ships (a sizer ->
+judge -> mover pipeline of three warps), with its mover warp swapped per
+variant, to split K2's per-batch time into the parse and its hand-over,
+the mover's reads and group syncs, its writes, and moving addresses.
 
     python -m snappytpu_torch.tools.dec_anatomy [--b 128] [--nq 4]
         [--corpus text] [--variants parse,window,full,fixed] [--device cuda]
 
-csrc/dec_anatomy.cu says what each variant strips.  `anatomy` is the entry:
-on a CUDA tensor it launches the kernel, on a CPU tensor it runs the plain
-walk `anatomy_ref`; both return, per block, the output image after the walk,
-K2's ok flag, the final output cursor (the TPU tool's ok tile) and the fold
-of the bytes read.  The inputs are dec_profile's staged sets (_staged.py),
-keyed by the encoder's hash, which replaces the JAX tool's
-SNAPPYTPU_DEC_CACHETAG.
+csrc/dec_anatomy.cu says what each variant's mover does (`full` is K2
+exactly).  `anatomy` is the entry: on a CUDA tensor it launches the kernel,
+on a CPU tensor it runs the plain walk `anatomy_ref`; both return, per
+block, the output image, K2's ok flag, the final output cursor (the TPU
+tool's ok tile) and the fold of the bytes read.  The inputs are
+dec_profile's staged sets (_staged.py), keyed by the encoder's hash, which
+replaces the JAX tool's SNAPPYTPU_DEC_CACHETAG.
 """
 
 from __future__ import annotations
@@ -153,10 +153,16 @@ def anatomy_ms(variant: str, sets) -> float:
     return best_per_batch(lambda c, t, n: anatomy(variant, c, t, n), sets) * 1e3
 
 
-def attribution(ms: dict) -> dict:
-    """The differences that attribute the full walk's time (ms per batch)."""
-    return {"parse": ms["parse"], "window - parse": ms["window"] - ms["parse"],
-            "full - window": ms["full"] - ms["window"], "full - fixed": ms["full"] - ms["fixed"]}
+def k2_split(ms: dict) -> dict:
+    """K2's time per batch split by the variants (ms per batch): `parse` is
+    the sizer, the judge and the hand-over with an idle mover; window −
+    parse the mover's reads and group syncs; full − window its writes;
+    full − fixed moving addresses (with what joining saves, since fixed
+    moves every op of a run that full joins)."""
+    return {"sizer+judge+hand-over (parse)": ms["parse"],
+            "mover reads+syncs (window - parse)": ms["window"] - ms["parse"],
+            "mover writes (full - window)": ms["full"] - ms["window"],
+            "moving addresses (full - fixed)": ms["full"] - ms["fixed"]}
 
 
 def main(argv=None) -> int:
@@ -181,7 +187,7 @@ def main(argv=None) -> int:
             log(f"{which:7s} {variant:7s} {best * 1000:8.2f} ms/batch  "
                 f"{args.b * C.MAX_BLOCK_SIZE / 1e6 / best:7.1f} MB/s")
         if set(VARIANTS) <= set(ms):
-            log(f"{which:7s} " + ", ".join(f"{k} {v:.3f}" for k, v in attribution(ms).items()) + " ms/batch")
+            log(f"{which:7s} " + ", ".join(f"{k} {v:.3f}" for k, v in k2_split(ms).items()) + " ms/batch")
     log("DONE")
     return 0
 

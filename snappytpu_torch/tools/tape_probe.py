@@ -1,25 +1,26 @@
 """Tape probe (T3) — the counterpart of the JAX package's
-tools/tape_probe.py: times variants of the tape decoder's record-by-record
-walk (K5's and K6's before they moved onto K2's grouped mover and the
-byte-source resolver) to find what serialises it.
+tools/tape_probe.py: times K5, the tape decoder that ships (a producer warp
+that loads, checks and hands over 32 records a step, and K2's mover warp),
+with one part changed per mode, to find what sets K5's pace: the
+producer's record loads, the mover's reads, its writes or its group syncs.
 
     python -m snappytpu_torch.tools.tape_probe [--modes full-D3] [--device cuda]
 
-Modes (csrc/tape_probe.cu says what each changes): full-D1 and full-D3
-(each group of 32 records loaded when the walk reaches it, or two groups
-ahead into shared memory by cp.async), loads (fetch and loop
-only), const-dst (every move at one fixed destination), acc (a staged write
-window) and rowbatchK (K records per warp step, K = 2, 4 or 8; `rowbatch`
-is K = 4).  `probe` is the entry: on a CUDA tensor it launches the kernel,
-on a CPU tensor it runs the plain version `probe_ref`; both return per
-block the output region, the ok flag and 128 auxiliary words (the record
-fold of `loads`, the scratch area of `const-dst`).  The exact modes give
-K6's bytes, which are K5's, so their plain version is theirs
-(`run_tape_ref`).  The inputs
-are the text and mixed corpora's staged sets in tape form (B = 128, four
-sets), as the JAX tool's; --modes is its SNAPPYTPU_TAPE_MODE, and the
-verification it made by default runs here too (exact modes against
-K5's plain version on set 0).
+Modes (csrc/tape_probe.cu says what each changes): full-D1 (K5 exactly)
+and full-D3 (the producer's loads three steps ahead), loads (the producer
+alone: the mover folds each batch's records and moves nothing), const-dst
+(the mover's reads and syncs, every record landing in one scratch area),
+acc (a staged write window) and rowbatchK (the mover's groups cut every K
+records, reads within a group resolved by address; K = 2, 4 or 8,
+`rowbatch` is K = 4).  `probe` is the entry: on a CUDA tensor it launches
+the kernel, on a CPU tensor it runs the plain version `probe_ref`; both
+return per block the output region, the ok flag and 128 auxiliary words
+(the record fold of `loads`, the scratch area of `const-dst`).  The exact
+modes give K5's bytes, so their plain version is K5's (`run_tape_ref`).
+The inputs are the text and mixed corpora's staged sets in tape form
+(B = 128, four sets), as the JAX tool's; --modes is its
+SNAPPYTPU_TAPE_MODE, and the verification it made by default runs here too
+(exact modes against K5's plain version on set 0).
 """
 
 from __future__ import annotations
@@ -145,6 +146,22 @@ def probe(mode: str, tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Te
     return out, ok, aux
 
 
+def k5_split(ms: dict) -> dict:
+    """K5's time per batch split by the modes (ms per batch, full-D1 is K5):
+    `loads` is the producer (loads, checks, conversion, hand-over) with a
+    mover that moves nothing; const-dst − loads the mover's reads and group
+    syncs; full-D1 − const-dst its writes at the records' addresses (with
+    what joining saves: const-dst moves every record of a run that K5
+    joins); full-D1 − full-D3 what loading three steps ahead saves;
+    full-D1 − rowbatch8 what a sync per 8 records instead of per group
+    saves."""
+    return {"producer + hand-over (loads)": ms["loads"],
+            "mover reads+syncs (const-dst - loads)": ms["const-dst"] - ms["loads"],
+            "mover writes (full-D1 - const-dst)": ms["full-D1"] - ms["const-dst"],
+            "load-ahead 3 saves (full-D1 - full-D3)": ms["full-D1"] - ms["full-D3"],
+            "syncs every 8 save (full-D1 - rowbatch8)": ms["full-D1"] - ms["rowbatch8"]}
+
+
 def probe_ms(mode: str, sets) -> float:
     """Milliseconds per batch of one mode over staged tape sets, best of 3."""
     return best_per_batch(lambda t, n, c: probe(mode, t, n, c), sets) * 1e3
@@ -166,6 +183,7 @@ def main(argv=None) -> int:
         sets = stage_sets(which, B, NQ, dev, tape=True)
         log(f"{which}: staged")
         ref = None
+        ms = {}
         for mode in modes:
             if mode not in ("loads", "const-dst"):
                 out, ok, _ = probe(mode, *sets[0])
@@ -175,7 +193,10 @@ def main(argv=None) -> int:
                     raise AssertionError(f"{which}/{mode}: output differs from K5's plain version")
                 log(f"{which} {mode}: byte-equal to K5's plain version")
             best = probe_ms(mode, sets) / 1e3
+            ms[mode] = best * 1e3
             log(f"{which:6s} {mode:9s} {best * 1000:8.2f} ms/batch  {B * C.MAX_BLOCK_SIZE / 1e6 / best:7.1f} MB/s")
+        if set(MODES) <= set(ms):
+            log(f"{which:6s} " + ", ".join(f"{k} {v:.3f}" for k, v in k5_split(ms).items()) + " ms/batch")
     log("DONE")
     return 0
 

@@ -1,13 +1,13 @@
 """The kernels' shared headers, checked from their own source without a GPU.
 
 snappytpu_torch/csrc/decode_block.cuh holds the op rules, the op parser and
-the op-by-op decode loop (K3's walk before its redesign, which the anatomy
-probe T2 dissects); decode_pipe.cuh holds K2's parse -> move pipeline,
-whose pieces K3, K4 and K5 reuse; decode_tape.cuh holds the tape record
-format, K5's producer and the record-by-record walk (K6's for a tape out of
-order, and T3's); test_torch_resolve_host.py checks K3's and K6's
-resolver.  All are host+device code.  Here g++ builds them into a tiny
-host harness:
+the op-by-op decode loop (K3's walk before its redesign, kept as the
+statement of the accept set); decode_pipe.cuh holds K2's parse -> move
+pipeline, whose pieces K3, K4 and K5 reuse; decode_tape.cuh holds the tape
+record format, K5's producer and the record-by-record walk (K6's for a tape
+out of order); test_torch_resolve_host.py checks K3's and K6's resolver,
+test_torch_probe_host.py the probes T2 and T3 on K2's and K5's pieces.  All
+are host+device code.  Here g++ builds them into a tiny host harness:
   * the op-by-op walk: a mover with the kernel's parallel copy indexing
     (out[opc + j] = out[opc - dist + j % dist]), held against the plain
     version and the JAX decoder on the rows of test_torch_decode.py, plus a
@@ -297,7 +297,7 @@ extern "C" int run_tape_pipe_host(const int32_t* tape, int64_t nrecs, int64_t ca
   return good ? 1 : 0;
 }
 
-// The record walk (decode_tape.cuh's run_tape: K6's for a tape out of order, T3's) on the host.
+// The record walk (decode_tape.cuh's run_tape: K6's for a tape out of order) on the host.
 extern "C" int run_tape_host(const int32_t* tape, int64_t nrecs, int64_t cap, const uint8_t* row, uint8_t* out) {
   static uint8_t img[snappy_tape::kImageBytes];
   memset(img, 0, sizeof img);
