@@ -51,11 +51,15 @@ set to 0 just before it and read just after:
         sizes: T2 (decode anatomy: K2 with its mover swapped per variant),
         T3 (tape probe: K5 with one part changed per mode) and T1 (scalar
         probes) against their plain versions (set 0 of each corpus, a hand
-        tape, 32 mutated blocks), then dec_profile's four decoders, T2's
-        variants and T3's modes on four 128-block sets of text and mixed,
-        and T1's 16 probes at N = 200,000, timed; T2 full beside K2, T2
-        parse beside K4a's parse (the hand-over), T3 full-D1 beside K5, and
-        K2's and K5's splits
+        tape, 32 mutated blocks; T1's 61 configurations in one batch at n =
+        20,000 and its 16 probes alone at N = 200,000), then dec_profile's
+        four decoders, T2's variants and T3's modes on four 128-block sets
+        of text and mixed, and T1's 61 configurations batched, one SM each,
+        at N = 200,000 (tiles held to their plain chains) and its 16 probes
+        alone, timed; T2 full beside K2, T2 parse beside K4a's parse (the
+        hand-over), T3 full-D1 beside K5, K2's and K5's splits, T1's batched
+        cycles per step beside the lone ones and the cost of a group close
+        (rmw_chain_same − split_ref_chain)
   14    the port's benchmark: the runner (snappytpu_torch.bench.run) in
         process on the 32 MB mixed corpus (3 reps, fast headline, dense
         companion), its ratios held to phase 5's; then
@@ -129,15 +133,15 @@ MAIN_MB = 32
 WIN_MB = 8  # the windowed path's stream: 128+ chunks, so two K4 calls of 64
 BIG_MB = 128  # bigfile_bench's input in phase 16: the tool's default, the runner's
 SWEEP_REAL_MB = 32  # the mesh sweep's Silesia-stand-in point in phase 15
-# a kernel's entries beyond the contract's keys: K3's and K6's CUDA kernels
-# and other sources, K3's and K4's launches of each of their two CUDA
+# a kernel's entries beyond the contract's keys: K3's, K6's and T1's CUDA
+# kernels and other sources, K3's and K4's launches of each of their two CUDA
 # kernels on their paths and those per call, K3's and K6's most resolver
 # rounds a block; K1's time by events around wrapper calls, the
 # copy floor, its main-path times and its times at the emit's other section
-# counts (phase 16)
+# counts (phase 16); T1's 16 SMOKE probes run alone, one after another
 K_EXTRAS = ("cuda_kernels", "sources", "kernel_launches", "kernels_per_call", "parse_ms", "move_ms", "resolve_ms",
             "rounds", "events_ms", "copy_floor_ms", "main_path_ms", "main_path_bound_ms", "sections_ms",
-            "sections_bound_ms")
+            "sections_bound_ms", "lone_ms")
 
 
 def log(msg: str) -> None:
@@ -474,13 +478,16 @@ def run_tape_k_path(stream: bytes, raw: bytes, dev) -> None:
 def profiling_path(dev) -> tuple[dict, dict]:
     """Phase 12: the decode profiling path at the JAX tools' sizes (128-block
     sets, four per corpus, dense profile, text and mixed).  First each of
-    T1-T3 is held against its plain version, exactly; then, with the launch
-    counts at 0, the path runs: dec_profile's four decoders, T2's variants
-    and T3's modes on all sets (with K4a's parse, to split T2's parse from
-    its hand-over), T1's 16 probes at N = 200,000.  T2 full (K2 with the
-    probe's outputs) and T3 full-D1 (K5) are printed beside K2's and K5's
-    dec_profile times.  Returns (kernels entries, launch counts of the
-    path)."""
+    T1-T3 is held against its plain version, exactly (T1: the JAX tool's 61
+    configurations in one batch at n = 20,000, the 16 SMOKE probes alone at
+    N = 200,000); then, with the launch counts at 0, the path runs:
+    dec_profile's four decoders, T2's variants and T3's modes on all sets
+    (with K4a's parse, to split T2's parse from its hand-over), T1's 61
+    configurations batched at N = 200,000 (best of 3 by CUDA events; every
+    tile equal to its plain chain) and its 16 SMOKE probes alone.  T2 full
+    (K2 with the probe's outputs) and T3 full-D1 (K5) are printed beside
+    K2's and K5's dec_profile times, T1's batched cycles per step beside the
+    lone ones.  Returns (kernels entries, launch counts of the path)."""
     from snappytpu_torch.format.constants import MAX_BLOCK_SIZE as BS
     from snappytpu_torch.kernels import decode_tape, decode_vm2, decode_vm4
     from snappytpu_torch.tools import _staged, dec_anatomy, dec_profile, probe_scalar, tape_probe
@@ -569,18 +576,30 @@ def profiling_path(dev) -> tuple[dict, dict]:
             raise AssertionError(f"T3 {mode} differs from its plain version on mutated blocks (max abs err {err})")
     log(f"[12 check] {m} text blocks, {int((~ref[1]).sum())} of them refused (a byte flipped, comp_len one short, a "
         f"wrong out_len; a pad): T2's variants equal the plain walk and T3's modes their plain versions")
-    for p in probe_scalar.SMOKE:
-        inp = probe_scalar.inputs(p)
-        tile, _clk = probe_scalar.run(p, torch.from_numpy(inp).to(dev), probe_scalar.N)
+    # T1: the JAX tool's 61 configurations in one batch, then the 16 alone;
+    # the plain chains at N are the batched path's reference too
+    configs = [p for g in sorted(probe_scalar.GROUPS) for p in probe_scalar.GROUPS[g]]
+    small = 20_000
+    tiles, _clk = probe_scalar.run_all(configs, small, dev)
+    for p, tile in zip(configs, tiles):
+        err = max_err([tile], [torch.from_numpy(probe_scalar.plain(p, probe_scalar.inputs(p), small))])
+        if err != 0:
+            raise AssertionError(f"T1 {p.name} differs from its plain chain in the batch (max abs err {err})")
+    log(f"[12 check] T1's {len(configs)} configurations in one batch at n = {small}, one SM each: every tile equals "
+        f"its plain chain")
+    t1_want = {}
+    for p in configs:
         t0 = time.perf_counter()
-        want = torch.from_numpy(probe_scalar.plain(p, inp, probe_scalar.N))
+        t1_want[p] = torch.from_numpy(probe_scalar.plain(p, probe_scalar.inputs(p), probe_scalar.N))
         t1_plain += (time.perf_counter() - t0) * 1e3
-        err = max_err([tile], [want])
+    for p in probe_scalar.SMOKE:
+        tile, _clk = probe_scalar.run(p, torch.from_numpy(probe_scalar.inputs(p)).to(dev), probe_scalar.N)
+        err = max_err([tile], [t1_want[p]])
         if err != 0:
             raise AssertionError(f"T1 {p.name} differs from its plain chain (max abs err {err})")
         t1_err = max(t1_err, err)
-    log(f"[12 check] T1's {len(probe_scalar.SMOKE)} probes at N = {probe_scalar.N}: every tile equals its plain "
-        f"chain ({t1_plain / 1e3:.1f} s of plain chains)")
+    log(f"[12 check] T1's {len(probe_scalar.SMOKE)} probes alone at N = {probe_scalar.N}: every tile equals its "
+        f"plain chain ({t1_plain / 1e3:.1f} s of plain chains for the {len(configs)} configurations)")
 
     # the path, with the counts at 0
     zero_counts()
@@ -610,12 +629,36 @@ def profiling_path(dev) -> tuple[dict, dict]:
         log(f"[12 T3 vs K5] {w}: full-D1 (K5 exactly) {ms['full-D1']:.4f} ms/batch, K5 (dec_profile vm=tape) "
             f"{k5:.4f}: ratio {ms['full-D1'] / k5:.4f} ({'within' if abs(ms['full-D1'] / k5 - 1) <= 0.1 else 'OUTSIDE'} "
             f"±10 %); K5's split: " + ", ".join(f"{k} {m:.4f}" for k, m in tape_probe.k5_split(ms).items()))
-    t1_ms = 0.0
+    t1 = probe_scalar.measure_all(configs, dev, probe_scalar.N)
+    for p, tile in zip(configs, t1["tiles"]):
+        err = max_err([tile], [t1_want[p]])
+        if err != 0:
+            raise AssertionError(f"T1 {p.name} differs from its plain chain in the timed batch (max abs err {err})")
+    slowest = max(ns * p.steps(probe_scalar.N) for p, ns in zip(configs, t1["ns_per_step"])) / 1e6
+    log(f"[12 T1 batched] {len(configs)} configurations at N = {probe_scalar.N}, one block each on "
+        f"{len(set(t1['sms']))} distinct SMs ({t1['launches_per_run']} launches a run, started within "
+        f"{t1['start_spread_us']:.1f} us): {t1['ms']:.4f} ms (best of 3, CUDA events), its slowest chain "
+        f"{slowest:.4f} ms by its clock; every tile equals its plain chain")
+    batched = {p: (ns, cyc) for p, ns, cyc in zip(configs, t1["ns_per_step"], t1["cycles_per_step"])}
+    for p in configs:
+        log(f"[12 T1 batched] {p.name:24s} {batched[p][0]:8.3f} ns/step {batched[p][1]:8.2f} cycles/step")
+    lone_ms, lone = 0.0, {}
     for p in probe_scalar.SMOKE:
-        m = probe_scalar.measure(p, dev, probe_scalar.N)
-        t1_ms += m["event_ns_per_step"] * p.steps(probe_scalar.N) / 1e6
-        log(f"[12 T1] {p.name:22s} {m['ns_per_step']:8.3f} ns/step by the chain's clock "
-            f"({m['cycles_per_step']:.2f} cycles), {m['event_ns_per_step']:8.3f} ns/step by events")
+        m = lone[p] = probe_scalar.measure(p, dev, probe_scalar.N)
+        lone_ms += m["event_ns_per_step"] * p.steps(probe_scalar.N) / 1e6
+        r = batched[p][1] / m["cycles_per_step"]
+        log(f"[12 T1 alone] {p.name:22s} {m['ns_per_step']:8.3f} ns/step ({m['cycles_per_step']:.2f} cycles) by the "
+            f"chain's clock, {m['event_ns_per_step']:8.3f} ns/step by events; batched/alone cycles {r:.4f} "
+            f"({'within' if abs(r - 1) <= 0.05 else 'OUTSIDE'} ±5 %)")
+    log(f"[12 T1] the {len(configs)} configurations batched {t1['ms']:.4f} ms against the "
+        f"{len(probe_scalar.SMOKE)} SMOKE probes one after another {lone_ms:.4f} ms (events; PR 12's 135.14)")
+    for u in (2, 8):
+        rmw, split = probe_scalar.Probe("rmw_chain_same", u), probe_scalar.Probe("split_ref_chain", u)
+        close = batched[rmw][1] - batched[split][1]
+        alone = (f", alone {lone[rmw]['cycles_per_step'] - lone[split]['cycles_per_step']:.2f}"
+                 if rmw in lone and split in lone else "")
+        log(f"[12 T1] a group close (rmw_chain_same({u}) − split_ref_chain({u})): {close:.2f} cycles/step batched"
+            f"{alone} ({batched[rmw][0] - batched[split][0]:.3f} ns/step batched)")
     launches = read_counts()
     log(f"[12 profiling] kernel launches on the path: {launches}")
     # bounds: bytes in and out of one timed call (a 128-block text set for
@@ -626,11 +669,12 @@ def profiling_path(dev) -> tuple[dict, dict]:
     t2_bytes = np.mean([int(t.sum()) for (_c, t, _n), _tp in text]) + BATCH * (8 + BS + 1 + 4 + 4)
     t3_bytes = np.mean([int(t.sum()) + 8 * int(nr.clamp(min=0).sum()) for (_c, t, _n), (_tp, nr, _cp) in text]) \
         + BATCH * (4 + BS + 1 + 4 * tape_probe.AUX)
-    t1_bytes = sum(probe_scalar.inputs(p).nbytes + 8 * 128 * 4 + 16 for p in probe_scalar.SMOKE)  # tiles, clocks
+    t1_bytes = sum(probe_scalar.inputs(p).nbytes + 8 * 128 * 4 + 32 + 16 for p in configs)  # tiles, clocks, table
     kernels = {
         "dec_anatomy": dict(err=t2_err, ms=t2_ms["text"]["full"], plain_ms=t2_plain, bound_ms=bound_ms(t2_bytes)),
         "tape_probe": dict(err=t3_err, ms=t3_ms["text"]["full-D1"], plain_ms=t3_plain, bound_ms=bound_ms(t3_bytes)),
-        "probe_scalar": dict(err=t1_err, ms=t1_ms, plain_ms=t1_plain, bound_ms=bound_ms(t1_bytes)),
+        "probe_scalar": dict(err=t1_err, ms=t1["ms"], plain_ms=t1_plain, bound_ms=bound_ms(t1_bytes), lone_ms=lone_ms,
+                             sources=["snappytpu_torch/csrc/probe_scalar.cuh"]),
     }
     return kernels, launches
 

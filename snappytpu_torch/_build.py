@@ -45,8 +45,8 @@ _SIGNATURES = {
     "snappy_dec_anatomy": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (tapes, nrecs, comp, out, ok, aux, B, cap, mode, k, stream) -> cudaError_t
     "snappy_tape_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (kind, a, b, in, out, clk, n, stream) -> cudaError_t
-    "snappy_probe_scalar": (_I, _I, _I, _P, _P, _P, _I, _P),
+    # (table, blocks, smem, in, out, clk, n, stream) -> cudaError_t
+    "snappy_probe_scalar": (_P, _I, _I, _P, _P, _P, _I, _P),
 }
 
 
