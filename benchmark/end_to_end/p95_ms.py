@@ -1,0 +1,8 @@
+"""The 95th percentile (linear interpolation) of the latency of every request
+in the window, call to return, in ms."""
+
+import numpy as np
+
+
+def read(window):
+    return float(np.percentile([(r.end - r.start) * 1e3 for r in window.requests], 95))
