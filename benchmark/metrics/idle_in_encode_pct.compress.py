@@ -1,0 +1,11 @@
+"""The share of a compress cell's traced stretch in which the card ran
+nothing while the host was inside the program's `snappy.encode` spans (the
+host enqueuing the encoder's ops), in %."""
+
+from benchmark import program_spans
+
+
+def read(view):
+    if not program_spans.compress_view(view) or not view.device:
+        return None
+    return 100.0 * program_spans.idle_s(view, program_spans.steps(view, "encode")) / view.window_s()

@@ -126,6 +126,8 @@ import time
 import numpy as np
 import torch
 
+from snappytpu_torch import profiling
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 BATCH = 128
@@ -261,36 +263,29 @@ def block_bytes(comp_lens, n: int) -> int:
     return int(cl.sum()) + 8 * n + n * C.MAX_BLOCK_SIZE + n
 
 
-def _counters():
-    """Every kernel's launch count: name -> (module, attribute); K3's and
-    K4's calls, and the launches of their CUDA kernels (K4a's parse is
-    both's first), apart."""
-    from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4
-    from snappytpu_torch.tools import dec_anatomy, probe_scalar, tape_probe
-
-    return {
-        "concat": (concat, "launches"),
-        "decode_block": (decode_vm4, "launches"),
-        "decode_block_vm2": (decode_vm2, "launches"),
-        "decode_stream": (decode_vm2, "stream_launches"),
-        "stream_parse_kernel": (decode_vm2, "parse_kernel_launches"),
-        "resolve_blocks_kernel": (decode_vm2, "resolve_kernel_launches"),
-        "stream_move_kernel": (decode_vm2, "move_kernel_launches"),
-        "decode_tape": (decode_tape, "launches"),
-        "decode_tape_k": (decode_tape, "k_launches"),
-        "dec_anatomy": (dec_anatomy, "launches"),
-        "tape_probe": (tape_probe, "launches"),
-        "probe_scalar": (probe_scalar, "launches"),
-    }
-
-
-def zero_counts() -> None:
-    for mod, attr in _counters().values():
-        setattr(mod, attr, 0)
+# the launch counters of profiling's registry, under the keys this script prints:
+# K3's and K4's calls, and the launches of their CUDA kernels (K4a's parse is
+# both's first), apart
+COUNT_KEYS = {
+    "concat": "concat.launches",
+    "decode_block": "decode_vm4.launches",
+    "decode_block_vm2": "decode_vm2.launches",
+    "decode_stream": "decode_vm2.stream_launches",
+    "stream_parse_kernel": "decode_vm2.parse_kernel_launches",
+    "resolve_blocks_kernel": "decode_vm2.resolve_kernel_launches",
+    "stream_move_kernel": "decode_vm2.move_kernel_launches",
+    "decode_tape": "decode_tape.launches",
+    "decode_tape_k": "decode_tape.k_launches",
+    "dec_anatomy": "dec_anatomy.launches",
+    "tape_probe": "tape_probe.launches",
+    "probe_scalar": "probe_scalar.launches",
+}
 
 
 def read_counts() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+    """Every kernel's launch count since the last `profiling.reset_counters()`."""
+    counts = profiling.counters()
+    return {key: counts.get(name, 0) for key, name in COUNT_KEYS.items()}
 
 
 def golden_streams():
@@ -602,7 +597,7 @@ def profiling_path(dev) -> tuple[dict, dict]:
         f"plain chain ({t1_plain / 1e3:.1f} s of plain chains for the {len(configs)} configurations)")
 
     # the path, with the counts at 0
-    zero_counts()
+    profiling.reset_counters()
     mbs = BATCH * (1 << 16) / 1e6
     dp = {}
     for vm in ("dispatch", "2", "4", "tape"):
@@ -687,7 +682,7 @@ def bench_path(dev, kind: str, results: dict) -> tuple[dict, dict]:
     JSON line)."""
     from snappytpu_torch.bench import run as bench_run
 
-    zero_counts()
+    profiling.reset_counters()
     bench = bench_run.measure("mixed", MAIN_MB, 3, dense=False, device=dev)
     launches = read_counts()
     log(f"[14 bench] {json.dumps(bench)}")
@@ -842,7 +837,7 @@ def mesh_path(dev) -> dict:
     from snappytpu_torch.stream import manifest
     from snappytpu_torch.tools import config4_mesh
 
-    zero_counts()
+    profiling.reset_counters()
     mesh = sharding.make_mesh(1)
     if mesh != [dev]:
         raise AssertionError(f"make_mesh(1) gave {mesh}")
@@ -935,7 +930,7 @@ def mesh_tools_path() -> dict:
     (128 blocks, 4 batches), each direct call against a one-card mesh on
     the same resident batches; the tools raise if the mesh's outputs
     differ.  Returns the launch counts."""
-    zero_counts()
+    profiling.reset_counters()
     with tempfile.TemporaryDirectory() as tmp:
         for profile in ("fast", "dense"):
             run_tool("mesh_device_bench", ["--out", tmp, "--profile", profile], phase=15)
@@ -1036,7 +1031,7 @@ def encoder_tools_path(dev, silesia_ratio: float) -> tuple[dict, dict]:
     del captured, copies
     log("[16 K1] rows at nsec 16, 32 and 128 equal the rows at 64, both profiles")
 
-    zero_counts()
+    profiling.reset_counters()
     run_tool("stage_profile", [])
     lines = run_tool("enc_profile", ["--cfgs", ",".join(f"{p}:{s}" for p in ("fast", "dense")
                                                         for s in (16, 32, 64, 128))])
@@ -1170,7 +1165,7 @@ def research_path(dev, bl, ll, encs, results) -> tuple[dict, dict]:
         decode_blocks_vm(*k2_batches[0])
         out["decode_GBps"].setdefault("K2", {})[f"encode_v2 {p}"] = mb / 1e3 / best_pass(decode_blocks_vm, k2_batches)[1]
 
-    zero_counts()
+    profiling.reset_counters()
     enc = {}
     for name, fn in encoders.items():
         out["encode_peak_GiB"][name] = call_peak(lambda: fn(bl[0], ll[0]))  # also the warm-up
@@ -1445,7 +1440,7 @@ def main() -> int:
         return concat.concat_rows(pieces, lens, out_cap)
 
     encode_v2.concat_rows = concat_capturing
-    zero_counts()
+    profiling.reset_counters()
     results, encs = {}, {}
     for profile in ("fast", "dense"):
         dense = profile == "dense"
@@ -1568,7 +1563,7 @@ def main() -> int:
         f"{name} {v['parse_ms']:.4f} / {v['resolve_ms']:.4f}" for name, v in split.items())
         + f"; resolver rounds per block (counts of 0..16): {json.dumps(k3_rounds)}")
     # its path: the A/B twin of phase 5's decode, on the fast profile's batches
-    zero_counts()
+    profiling.reset_counters()
     dec3 = [decode_vm2.decode_blocks_vm2(c, t, n) for (c, t), n in zip(encs["fast"], ll)]
     paths["main_ab_k3"] = read_counts()
     ok_count = sum(int(ok.sum()) for _o, ok in dec3)
@@ -1767,7 +1762,7 @@ def main() -> int:
             fstream = f.read()
         if fstream != api.compress(raw, "fast", device=dev) or nbytes != len(fstream):
             raise AssertionError("compress_file differs from api.compress")
-        zero_counts()
+        profiling.reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         filecodec.decompress_file(comp_f, out_f, device=dev)
@@ -1814,15 +1809,14 @@ def main() -> int:
         f"{turns10['K5'][0]:.4f}, K6 {turns10['K6'][0]:.4f}, K6 {turns10['K6'][1]:.4f}, K5 {turns10['K5'][1]:.4f}; "
         f"K5/K6 = {t5 / t6:.3f}")
     # K6's path: the A/B twin of the tape route, on the same host rows
-    zero_counts()
+    profiling.reset_counters()
     run_tape_k_path(fstream, raw, dev)
     paths["host_ab_k6"] = read_counts()
     log(f"[10 host] A/B path: the 32 MB stream's tapes through K6 (K=4) decode to the input in "
         f"{paths['host_ab_k6']['decode_tape_k']} launches")
 
     # ---- 11. the windowed path: an unaligned 8 MB stream through api.decompress ----
-    zero_counts()
-    api.host_fallbacks = 0
+    profiling.reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if api.decompress(wstream, device=dev) != wdata:
@@ -1830,7 +1824,7 @@ def main() -> int:
     torch.cuda.synchronize()
     win_s = time.perf_counter() - t0
     paths["windowed"] = read_counts()
-    if api.host_fallbacks != 0:
+    if profiling.counters().get("decompress.host_fallbacks", 0) != 0:
         raise AssertionError("K4 refused the unaligned stream; the host decoder decoded it")
     if paths["windowed"]["decode_stream"] < 2:
         raise AssertionError(f"the windowed path ran {paths['windowed']['decode_stream']} K4 calls, fewer than 2")

@@ -16,6 +16,16 @@ taking the same decode routes:
 
 There is no power-of-two batch bucketing (it bounded jit recompiles only);
 a device call takes at most 128 blocks.
+
+Each step of a call runs in a `profiling.span` named `snappy.<step>`
+(recorded only under a torch profiler).  compress: `snappy.compress` holds
+`pack`, then per device call `h2d`, `encode`, `d2h`, `rows`, `compact`,
+then `join`, which tile it.  decompress: `snappy.decompress` holds `scan`,
+`split`, per device call `tape` (the tape route), `h2d`, `decode`, `d2h`,
+`compact`, then `join`; or `windowed` (K4, with its own `split`, `h2d`,
+`decode`, `d2h`), or `host_decode`.  Counters: `compress.d2h_bytes` and
+`compress.stream_bytes` (the encoder's output copied to the host, and the
+stream in it), `decompress.host_fallbacks`.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import cpu
+from . import cpu, profiling
 from .format import constants as C
 from .format.varint import encode_varint
 from .kernels.decode_tape import decode_blocks_tape
@@ -35,8 +45,6 @@ from .stream import framing
 
 DEVICE_BATCH = 128    # blocks per device call (8 MiB input; the encoder's peak memory is per call)
 _WINDOWED_BATCH = 64  # chunks per decode_stream_vm call (~4.6 MB comp)
-
-host_fallbacks = 0  # unsplittable streams the windowed decoder refused, decoded on the host
 
 
 class CapacityError(RuntimeError, ValueError):
@@ -73,38 +81,57 @@ def encode_rows(blocks: np.ndarray, lens: np.ndarray, profile: str = "dense", *,
     B = blocks.shape[0]
     # every input is copied before the first launch: a copy from pageable
     # memory waits for its card's queue
-    staged = [(s, [torch.from_numpy(a[s : s + DEVICE_BATCH]).to(device) for a in (blocks, lens)])
-              for s in range(0, B, DEVICE_BATCH)]
-    calls = [(s, encode_blocks(b, n, profile)) for s, (b, n) in staged]
-    comp, totals = np.empty((B, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8), np.empty(B, np.int32)
-    for s, (c, t) in calls:
-        comp[s : s + c.shape[0]], totals[s : s + t.shape[0]] = c.cpu().numpy(), t.cpu().numpy()
-    check_totals(totals, first)
+    with profiling.span("snappy.h2d"):
+        staged = [(s, [torch.from_numpy(a[s : s + DEVICE_BATCH]).to(device) for a in (blocks, lens)])
+                  for s in range(0, B, DEVICE_BATCH)]
+    with profiling.span("snappy.encode"):
+        calls = [(s, encode_blocks(b, n, profile)) for s, (b, n) in staged]
+    with profiling.span("snappy.d2h"):
+        host = [(s, c.cpu().numpy(), t.cpu().numpy()) for s, (c, t) in calls]
+    with profiling.span("snappy.rows"):
+        comp, totals = np.empty((B, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8), np.empty(B, np.int32)
+        for s, c, t in host:
+            comp[s : s + c.shape[0]], totals[s : s + t.shape[0]] = c, t
+        check_totals(totals, first)
+        profiling.count("compress.d2h_bytes", sum(c.nbytes + t.nbytes for _, c, t in host))
+        profiling.count("compress.stream_bytes", int(totals.sum(dtype=np.int64)))
     return comp, totals
 
 
 def encode_array_pieces(arr: np.ndarray, profile: str, *, device):
     """Encode a byte array on `device`, yielding compacted wire pieces (no
     preamble) one device batch at a time."""
-    blocks, lens = framing.pack_blocks(arr)
+    with profiling.span("snappy.pack"):
+        blocks, lens = framing.pack_blocks(arr)
+    yield from _encode_packed(blocks, lens, profile, device)
+
+
+def _encode_packed(blocks: np.ndarray, lens: np.ndarray, profile: str, device):
+    """encode_array_pieces after pack_blocks.  No span is open at a yield."""
     for start in range(0, blocks.shape[0], DEVICE_BATCH):
         stop = start + DEVICE_BATCH
         comp, totals = encode_rows(blocks[start:stop], lens[start:stop], profile, device=device, first=start)
-        if cpu.available:
-            yield cpu.compact(comp, totals)
-        else:
-            for i in range(comp.shape[0]):
-                yield comp[i, : totals[i]].tobytes()
+        with profiling.span("snappy.compact"):
+            if cpu.available:
+                pieces = [cpu.compact(comp, totals)]
+            else:
+                pieces = [comp[i, : totals[i]].tobytes() for i in range(comp.shape[0])]
+        yield from pieces
 
 
 def compress(data: bytes | np.ndarray, profile: str = "dense", *, device) -> bytes:
     """Encode a byte string into a raw Snappy stream on `device`.
 
     profile: "dense" (default) or "fast", as in snappytpu.api.compress."""
-    arr = _as_u8(data)
-    if arr.size == 0:
-        return encode_varint(0)
-    return b"".join([encode_varint(arr.size), *encode_array_pieces(arr, profile, device=device)])
+    with profiling.span("snappy.compress"):
+        with profiling.span("snappy.pack"):
+            arr = _as_u8(data)
+            packed = framing.pack_blocks(arr) if arr.size else None
+        if packed is None:
+            return encode_varint(0)
+        pieces = [encode_varint(arr.size), *_encode_packed(*packed, profile, device)]
+        with profiling.span("snappy.join"):
+            return b"".join(pieces)
 
 
 def _decompress_windowed(split, *, device) -> bytes:
@@ -117,44 +144,59 @@ def _decompress_windowed(split, *, device) -> bytes:
     tail = b""  # last <= 64 KiB of decoded output so far
     for k0 in range(0, len(chunks), _WINDOWED_BATCH):
         k1 = min(k0 + _WINDOWED_BATCH, len(chunks))
-        padded, comp_lens = framing.pad_chunks(chunks[k0:k1])
-        ctx0 = np.zeros(C.MAX_BLOCK_SIZE, np.uint8)
-        if tail:
-            ctx0[C.MAX_BLOCK_SIZE - len(tail):] = np.frombuffer(tail, np.uint8)
-        out, ok = decode_stream_vm(
-            torch.from_numpy(padded).to(device),
-            torch.from_numpy(comp_lens).to(device),
-            torch.tensor(out_lens[k0:k1], dtype=torch.int32, device=device),
-            torch.from_numpy(np.asarray(ctx_lens[k0:k1], np.int32)).to(device),
-            torch.from_numpy(ctx0).to(device),
-        )
-        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        with profiling.span("snappy.split"):
+            padded, comp_lens = framing.pad_chunks(chunks[k0:k1])
+            ctx0 = np.zeros(C.MAX_BLOCK_SIZE, np.uint8)
+            if tail:
+                ctx0[C.MAX_BLOCK_SIZE - len(tail):] = np.frombuffer(tail, np.uint8)
+        with profiling.span("snappy.h2d"):
+            args = (
+                torch.from_numpy(padded).to(device),
+                torch.from_numpy(comp_lens).to(device),
+                torch.tensor(out_lens[k0:k1], dtype=torch.int32, device=device),
+                torch.from_numpy(np.asarray(ctx_lens[k0:k1], np.int32)).to(device),
+                torch.from_numpy(ctx0).to(device),
+            )
+        with profiling.span("snappy.decode"):
+            out, ok = decode_stream_vm(*args)
+        with profiling.span("snappy.d2h"):
+            out, ok = out.cpu().numpy(), ok.cpu().numpy()
         if not ok.all():
             raise CorruptError(f"malformed chunk(s) {(k0 + np.nonzero(~ok)[0]).tolist()} (windowed)")
-        batch = b"".join(out[i, : out_lens[k0 + i]].tobytes() for i in range(k1 - k0))
-        pieces.append(batch)
-        tail = (tail + batch)[-C.MAX_BLOCK_SIZE:]
-    return b"".join(pieces)
+        with profiling.span("snappy.compact"):
+            batch = b"".join(out[i, : out_lens[k0 + i]].tobytes() for i in range(k1 - k0))
+            pieces.append(batch)
+            tail = (tail + batch)[-C.MAX_BLOCK_SIZE:]
+    with profiling.span("snappy.join"):
+        return b"".join(pieces)
 
 
 def _unsplittable(arr: np.ndarray, ops: np.ndarray, out_len: int, device) -> bytes:
     """A stream whose ops straddle 64 KiB output blocks."""
-    global host_fallbacks
     try:
-        return _decompress_windowed(framing.split_ops_windowed(ops, out_len), device=device)
+        with profiling.span("snappy.windowed"):
+            with profiling.span("snappy.split"):
+                split = framing.split_ops_windowed(ops, out_len)
+            return _decompress_windowed(split, device=device)
     except CorruptError:
         # giant-op stream, or one no window can prove valid: the sequential
         # host decoder decodes the valid ones and raises on the corrupt ones
-        host_fallbacks += 1
-        if cpu.available:
-            return cpu.decompress(arr)
-        return decode_ops(ops, out_len).tobytes()
+        profiling.count("decompress.host_fallbacks")
+        with profiling.span("snappy.host_decode"):
+            if cpu.available:
+                return cpu.decompress(arr)
+            return decode_ops(ops, out_len).tobytes()
 
 
 def decompress(data: bytes | np.ndarray, *, device) -> bytes:
     """Decode a raw Snappy stream on `device` by the routes in the module
     docstring; CorruptError (or the native decoder's NativeError) if the
     stream is malformed."""
+    with profiling.span("snappy.decompress"):
+        return _decompress(data, device)
+
+
+def _decompress(data, device) -> bytes:
     arr = _as_u8(data)
     out_len, ops_start = framing.read_preamble(arr)
     if out_len == 0:
@@ -164,29 +206,39 @@ def decompress(data: bytes | np.ndarray, *, device) -> bytes:
     ops = arr[ops_start:]
     if cpu.available:
         try:
-            offs, out_lens = cpu.scan_ops(ops, out_len)
-            padded, comp_lens = cpu.split_rows(ops, offs, C.MAX_COMPRESSED_BLOCK_SIZE)
+            with profiling.span("snappy.scan"):
+                offs, out_lens = cpu.scan_ops(ops, out_len)
+            with profiling.span("snappy.split"):
+                padded, comp_lens = cpu.split_rows(ops, offs, C.MAX_COMPRESSED_BLOCK_SIZE)
         except cpu.NativeError:
             return _unsplittable(arr, ops, out_len, device)
     else:
         try:
-            chunks, out_lens = framing.split_ops_stream(ops, out_len)
+            with profiling.span("snappy.split"):
+                chunks, out_lens = framing.split_ops_stream(ops, out_len)
         except CorruptError:
             return _unsplittable(arr, ops, out_len, device)
-        padded, comp_lens = framing.pad_chunks(chunks)
+        with profiling.span("snappy.split"):
+            padded, comp_lens = framing.pad_chunks(chunks)
     out_lens = np.asarray(out_lens, np.int32)
     pieces = []
     for start in range(0, padded.shape[0], DEVICE_BATCH):
         rows, cl, ol = (a[start : start + DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
-        if cpu.available:  # host-built tapes, the device only moves bytes
+        if cpu.available:  # host-built tapes, the device only moves bytes; spans inside
             out, ok = decode_blocks_tape(rows, cl, ol, device=device)
         else:
-            out, ok = decode_blocks(*(torch.from_numpy(a).to(device) for a in (rows, cl, ol)))
-        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+            with profiling.span("snappy.h2d"):
+                args = [torch.from_numpy(a).to(device) for a in (rows, cl, ol)]
+            with profiling.span("snappy.decode"):
+                out, ok = decode_blocks(*args)
+        with profiling.span("snappy.d2h"):
+            out, ok = out.cpu().numpy(), ok.cpu().numpy()
         if not ok.all():
             raise CorruptError(f"malformed block(s) {(start + np.nonzero(~ok)[0]).tolist()}")
-        if cpu.available:
-            pieces.append(cpu.compact(out, ol))
-        else:
-            pieces.extend(out[i, : ol[i]].tobytes() for i in range(out.shape[0]))
-    return b"".join(pieces)
+        with profiling.span("snappy.compact"):
+            if cpu.available:
+                pieces.append(cpu.compact(out, ol))
+            else:
+                pieces.extend(out[i, : ol[i]].tobytes() for i in range(out.shape[0]))
+    with profiling.span("snappy.join"):
+        return b"".join(pieces)

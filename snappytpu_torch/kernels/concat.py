@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-launches = 0  # kernel launches by concat_rows (the CUDA route only)
+from ..profiling import count  # concat.launches: kernel launches by concat_rows (the CUDA route only)
 
 
 def concat_rows_ref(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch.Tensor:
@@ -46,7 +46,6 @@ def check_aligned(cap: int, out_cap: int, *ptrs: int) -> None:
 
 
 def _launch(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch.Tensor:
-    global launches
     from .._build import check, library
 
     B, S, CAP = pieces.shape
@@ -59,7 +58,7 @@ def _launch(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch.Ten
                 B, S, CAP, out_cap, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
             )
         check(rc, "concat_rows")
-        launches += 1
+        count("concat.launches")
     return out
 
 

@@ -36,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import profiling
 from ..format import constants as C
 
 from .decode_vm import decode_blocks_vm
@@ -48,8 +49,8 @@ IMAGE_BYTES = OUT_BASE + BS
 PIECE_MAX = 504                      # the builder's longest record
 TAPE_MAX = 12288                     # records per block, as the JAX package
 
-launches = 0    # kernel launches by _run_tape (the CUDA route only)
-k_launches = 0  # kernel launches by _run_tape_k (the CUDA route only)
+# Counters (profiling.count), the CUDA route only: decode_tape.launches and
+# decode_tape.k_launches, kernel launches by _run_tape and by _run_tape_k.
 
 
 def build_tapes(comp_np: np.ndarray, comp_lens: np.ndarray, out_lens: np.ndarray):
@@ -162,13 +163,12 @@ def _launch(tapes, nrecs, comp_u8):
 
 def _run_tape(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor):
     """K5: execute each block's tape, on the device of the inputs."""
-    global launches
     tapes, nrecs, comp_u8 = _checked(tapes, nrecs, comp_u8)
     if comp_u8.device.type == "cpu":
         return run_tape_ref(tapes, nrecs, comp_u8)
     out = _launch(tapes, nrecs, comp_u8)
     if comp_u8.shape[0]:
-        launches += 1
+        profiling.count("decode_tape.launches")
     return out
 
 
@@ -197,7 +197,6 @@ def _resolve_tapes(tapes, nrecs, comp_u8):
 
 def _run_tape_k(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor, K: int = 4):
     """K6: _run_tape with blocks taken K at a time; B must be a multiple of K."""
-    global k_launches
     tapes, nrecs, comp_u8 = _checked(tapes, nrecs, comp_u8)
     if K < 1 or comp_u8.shape[0] % K:
         raise ValueError(f"batch of {comp_u8.shape[0]} blocks is not a multiple of K={K}")
@@ -205,7 +204,7 @@ def _run_tape_k(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor,
         return run_tape_ref(tapes, nrecs, comp_u8)
     out, ok, _rounds = _resolve_tapes(tapes, nrecs, comp_u8)
     if comp_u8.shape[0]:
-        k_launches += 1
+        profiling.count("decode_tape.k_launches")
     return out, ok
 
 
@@ -226,12 +225,15 @@ def decode_blocks_tape(comp_u8, comp_lens, out_lens, *, device):
     comp_np = np.ascontiguousarray(comp_u8, dtype=np.uint8)
     cl = np.ascontiguousarray(comp_lens, dtype=np.int32)
     ol = np.ascontiguousarray(out_lens, dtype=np.int32)
-    tapes, nrecs = build_tapes(comp_np, cl, ol)
-    tp, nr, rows = stage(comp_np, tapes, nrecs, device=device)
-    out, ok = _run_tape(tp, nr, rows)
-    fb = np.nonzero(nrecs == -9)[0]
-    if fb.size:
-        idx = torch.from_numpy(fb).to(device)
-        out[idx], ok[idx] = decode_blocks_vm(rows[idx], torch.from_numpy(cl[fb]).to(device),
-                                             torch.from_numpy(ol[fb]).to(device))
+    with profiling.span("snappy.tape"):
+        tapes, nrecs = build_tapes(comp_np, cl, ol)
+    with profiling.span("snappy.h2d"):
+        tp, nr, rows = stage(comp_np, tapes, nrecs, device=device)
+    with profiling.span("snappy.decode"):
+        out, ok = _run_tape(tp, nr, rows)
+        fb = np.nonzero(nrecs == -9)[0]
+        if fb.size:
+            idx = torch.from_numpy(fb).to(device)
+            out[idx], ok[idx] = decode_blocks_vm(rows[idx], torch.from_numpy(cl[fb]).to(device),
+                                                 torch.from_numpy(ol[fb]).to(device))
     return out, ok

@@ -32,21 +32,20 @@ import ctypes
 import numpy as np
 import torch
 
+from ..profiling import count
 from .decode_vm4 import BS, PAD_OUT, _decode_into, checked, decode_blocks_ref
 
-launches = 0         # calls of decode_blocks_vm2 that launched its two kernels (the CUDA route only)
-stream_launches = 0  # calls of decode_stream_vm that launched its two kernels (the CUDA route only)
-# launches of each CUDA kernel, counted where it is launched: K4a's parse
-# (by K3 and by K4), K3's resolve and K4b's move
-parse_kernel_launches = 0
-resolve_kernel_launches = 0
-move_kernel_launches = 0
+# Counters (profiling.count), the CUDA route only: decode_vm2.launches and
+# decode_vm2.stream_launches, calls of decode_blocks_vm2 and of
+# decode_stream_vm that launched their two kernels; the launches of each
+# CUDA kernel, counted where it is launched: decode_vm2.parse_kernel_launches
+# (K4a's parse, by K3 and by K4), .resolve_kernel_launches (K3's resolve)
+# and .move_kernel_launches (K4b's move).
 
 
 def decode_blocks_vm2(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor):
     """Batched block decode on the v2 entry point: (B, PAD_OUT) uint8 +
     (B,) int32 x2 -> ((B, BS) uint8, (B,) bool); equal to decode_blocks_vm4."""
-    global launches
     comp_u8, comp_lens, out_lens = checked(comp_u8, comp_lens, out_lens)
     if comp_u8.device.type == "cpu":
         return decode_blocks_ref(comp_u8, comp_lens, out_lens)
@@ -55,7 +54,7 @@ def decode_blocks_vm2(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: 
                 torch.empty(0, dtype=torch.bool, device=comp_u8.device))
     comp_u8 = comp_u8 if comp_u8.data_ptr() % 16 == 0 else comp_u8.clone()  # rows are read in 16-byte pieces
     out, ok, _rounds = _resolve(comp_u8, *_parse_blocks(comp_u8, comp_lens, out_lens))
-    launches += 1
+    count("decode_vm2.launches")
     return out, ok
 
 
@@ -69,7 +68,6 @@ def _parse_blocks(comp_u8, comp_lens, out_lens):
 def _resolve(comp_u8, recs, nrecs, parsed_ok):
     """K3's second launch: _parse_blocks' records resolved into rows ->
     ((B, BS) uint8, (B,) bool ok, (B,) int32 rounds the resolver took)."""
-    global resolve_kernel_launches
     from .._build import check, library
 
     B, dev = comp_u8.shape[0], comp_u8.device
@@ -82,7 +80,7 @@ def _resolve(comp_u8, recs, nrecs, parsed_ok):
             ok.data_ptr(), rounds.data_ptr(), B, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     check(rc, "decode_blocks_vm2 (resolve)")
-    resolve_kernel_launches += 1
+    count("decode_vm2.resolve_kernel_launches")
     return out, ok, rounds
 
 
@@ -111,7 +109,6 @@ REC_CAP = PAD_OUT // 2  # records per chunk: an op takes two comp bytes or more
 def _stream_parse(comp_u8, comp_lens, out_lens, ctx_lens):
     """K4a on a checked call of N > 0 chunks -> ((N, REC_CAP, 4) int32
     records, (N,) int32 counts, (N,) bool ok)."""
-    global parse_kernel_launches
     from .._build import check, library
 
     N, dev = comp_u8.shape[0], comp_u8.device
@@ -124,14 +121,13 @@ def _stream_parse(comp_u8, comp_lens, out_lens, ctx_lens):
             nrecs.data_ptr(), ok.data_ptr(), N, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     check(rc, "decode_stream_vm (parse)")
-    parse_kernel_launches += 1
+    count("decode_vm2.parse_kernel_launches")
     return recs, nrecs, ok
 
 
 def _stream_move(comp_u8, comp_lens, out_lens, ctx0_u8, recs, nrecs):
     """K4b: _stream_parse's records of a checked call moved chunk by chunk
     -> (N, BS) uint8 rows."""
-    global move_kernel_launches
     from .._build import check, library
 
     N = comp_u8.shape[0]
@@ -142,7 +138,7 @@ def _stream_move(comp_u8, comp_lens, out_lens, ctx0_u8, recs, nrecs):
             nrecs.data_ptr(), out.data_ptr(), N, REC_CAP, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     check(rc, "decode_stream_vm (move)")
-    move_kernel_launches += 1
+    count("decode_vm2.move_kernel_launches")
     return out
 
 
@@ -164,7 +160,6 @@ def decode_stream_vm(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: t
                      ctx_lens: torch.Tensor, ctx0_u8: torch.Tensor):
     """Sequential windowed decode of N op chunks, on the device of the
     inputs (see the module docstring for the contract)."""
-    global stream_launches
     comp_u8, comp_lens, out_lens = checked(comp_u8, comp_lens, out_lens)
     N = comp_u8.shape[0]
     if ctx_lens.shape != (N,) or ctx_lens.device != comp_u8.device:
@@ -177,5 +172,5 @@ def decode_stream_vm(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: t
         return decode_stream_ref(comp_u8, comp_lens, out_lens, ctx_lens, ctx0_u8)
     out = _launch_stream(comp_u8, comp_lens, out_lens, ctx_lens, ctx0_u8)
     if N:
-        stream_launches += 1
+        count("decode_vm2.stream_launches")
     return out

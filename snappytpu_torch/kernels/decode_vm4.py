@@ -25,11 +25,10 @@ import numpy as np
 import torch
 
 from ..format import constants as C
+from ..profiling import count  # decode_vm4.launches: kernel launches by decode_blocks_vm4 (the CUDA route only)
 
 BS = C.MAX_BLOCK_SIZE
 PAD_OUT = C.MAX_COMPRESSED_BLOCK_SIZE
-
-launches = 0  # kernel launches by decode_blocks_vm4 (the CUDA route only)
 
 
 def _parse_at(row: bytes, ip: int, opc: int, comp_len: int, out_len: int, ctx_len: int = 0):
@@ -137,11 +136,10 @@ def checked(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tens
 def decode_blocks_vm4(comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor):
     """Batched block decode: (B, PAD_OUT) uint8 + (B,) int32 x2 ->
     ((B, BS) uint8, (B,) bool), on the device of the inputs."""
-    global launches
     comp_u8, comp_lens, out_lens = checked(comp_u8, comp_lens, out_lens)
     if comp_u8.device.type == "cpu":
         return decode_blocks_ref(comp_u8, comp_lens, out_lens)
     out = _launch(comp_u8, comp_lens, out_lens)
     if comp_u8.shape[0]:
-        launches += 1
+        count("decode_vm4.launches")
     return out

@@ -1,9 +1,32 @@
 """Tracing/profiling utilities — the counterpart of snappytpu.profiling.
 
-Per-stage wall timings that synchronise the device at each boundary, a phase
-breakdown report in the JAX module's format, a torch.profiler trace wrapper
-and a warm-up-then-measure helper.  On a CPU tensor nothing is synchronised:
-CPU work is already done when the call returns, and no card is timed.
+Spans and counters of the served path:
+
+  span(name)        a context manager around one step of `api.compress` or
+                    `api.decompress`, named `snappy.<step>`.  It enters
+                    `torch.profiler.record_function(name)` only while a
+                    torch profiler is recording, and otherwise costs one
+                    flag check.  So tracing is on exactly when someone
+                    profiles, as `device_trace` below does, and kineto
+                    writes the spans into the same trace, on the same clock,
+                    as the kernels and copies they enqueue.  Nothing is kept
+                    besides what the profiler keeps.  The API is synchronous
+                    and runs on the calling thread: a span belongs to the
+                    request whose `snappy.compress` or `snappy.decompress`
+                    span encloses it on that thread, and that enclosing span
+                    is the request's identifier.
+  count(name, n)    adds n to a counter of the process's registry: integer
+                    adds on the host, always on.  `counters()` reads a copy,
+                    `reset_counters()` empties it.  Names are
+                    `<module or op>.<what>`, e.g. `concat.launches`,
+                    `compress.d2h_bytes`.
+
+For the profiling tools: per-stage wall timings that synchronise the device
+at each boundary (so not for the served path, whose copies they would
+serialise), a phase breakdown report in the JAX module's format, a
+torch.profiler trace wrapper and a warm-up-then-measure helper.  On a CPU
+tensor nothing is synchronised: CPU work is already done when the call
+returns, and no card is timed.
 """
 
 from __future__ import annotations
@@ -13,6 +36,30 @@ import time
 from collections import defaultdict
 
 import torch
+
+_profiling = torch._C._autograd._profiler_enabled  # true while a torch profiler records
+_OFF = contextlib.nullcontext()
+_counts: dict[str, int] = {}
+
+
+def span(name: str):
+    """`with span("snappy.<step>"):` records the block as a
+    `record_function` span while a torch profiler records; else nothing."""
+    return torch.profiler.record_function(name) if _profiling() else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name`."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A copy of every counter counted since the last reset."""
+    return dict(_counts)
+
+
+def reset_counters() -> None:
+    _counts.clear()
 
 
 def _sync(tensors) -> None:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..format import constants as C
+from ..profiling import count  # dec_anatomy.launches: kernel launches by anatomy (the CUDA route only)
 
 from ..kernels.decode_vm4 import BS, PAD_OUT, _parse_at, checked
 from ._staged import MAKERS, best_per_batch, device_of, make_log, stage_sets
@@ -33,7 +34,6 @@ from ._staged import MAKERS, best_per_batch, device_of, make_log, stage_sets
 VARIANTS = ("parse", "window", "full", "fixed")
 FIXED_SRC = 64  # fixed's source: compressed byte 64 (the TPU tool's COMP_OFF + 64)
 
-launches = 0  # kernel launches by anatomy (the CUDA route only)
 
 
 def _lane_fold(b: np.ndarray) -> int:
@@ -120,7 +120,6 @@ def anatomy_ref(variant: str, comp_u8: torch.Tensor, comp_lens: torch.Tensor, ou
 def anatomy(variant: str, comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_lens: torch.Tensor):
     """One variant of the walk over a batch, on the device of the inputs
     (see anatomy_ref for the outputs)."""
-    global launches
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     comp_u8, comp_lens, out_lens = checked(comp_u8, comp_lens, out_lens)
@@ -144,7 +143,7 @@ def anatomy(variant: str, comp_u8: torch.Tensor, comp_lens: torch.Tensor, out_le
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     check(rc, f"dec_anatomy {variant}")
-    launches += 1
+    count("dec_anatomy.launches")
     return img, ok, opc, fold
 
 

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..profiling import count  # probe_scalar.launches: kernel launches by run (the CUDA route only)
 from ._staged import device_of
 
 N = 200_000
@@ -51,7 +52,6 @@ _UNROLL = {"alu_unroll": (1, 2, 4, 8, 16, 32), "smem_unroll": (1, 2, 4, 8, 16, 3
            "split_ref_chain": (2, 8, 16), "rmw_chain_same": (2, 8, 16), "vec_chain": (2, 8)}
 _PAR = (1, 2, 4, 6)
 
-launches = 0  # kernel launches by run (the CUDA route only)
 
 
 @dataclass(frozen=True)
@@ -300,13 +300,12 @@ def _launch(table: torch.Tensor, inp: torch.Tensor, n: int, smem: int, tiles: to
             stream) -> None:
     """Launch the kernel on a checked CUDA input: block i runs table row i
     into tiles[i] and clk[i]."""
-    global launches
     from .._build import check, library
 
     rc = library().snappy_probe_scalar(table.data_ptr(), table.shape[0], smem, inp.data_ptr(), tiles.data_ptr(),
                                        clk.data_ptr(), n, ctypes.c_void_p(stream.cuda_stream))
     check(rc, f"probe_scalar ({table.shape[0]} blocks)")
-    launches += 1
+    count("probe_scalar.launches")
 
 
 def _outputs(blocks: int, dev) -> tuple[torch.Tensor, torch.Tensor]:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..format import constants as C
+from ..profiling import count  # tape_probe.launches: kernel launches by probe (the CUDA route only)
 
 from ..kernels.decode_tape import BS, OUT_BASE, PAD_OUT, _checked, image, records, run_tape_ref
 from ._staged import best_per_batch, device_of, make_log, stage_sets
@@ -43,7 +44,6 @@ AUX = 128       # auxiliary words per block
 SCRATCH = 512   # const-dst's fixed destination
 B, NQ = 128, 4  # the JAX tool's batch and sets
 
-launches = 0  # kernel launches by probe (the CUDA route only)
 
 
 def _mode(mode: str) -> tuple[int, int]:
@@ -120,7 +120,6 @@ def hazard_batch():
 def probe(mode: str, tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor):
     """One mode of the record walk over a batch, on the device of the inputs
     (see probe_ref for the outputs)."""
-    global launches
     idx, k = _mode(mode)
     tapes, nrecs, comp_u8 = _checked(tapes, nrecs, comp_u8)
     if comp_u8.device.type == "cpu":
@@ -142,7 +141,7 @@ def probe(mode: str, tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Te
             n, tapes.shape[1] // 2, idx, k, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     check(rc, f"tape_probe {mode}")
-    launches += 1
+    count("tape_probe.launches")
     return out, ok, aux
 
 

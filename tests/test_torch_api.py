@@ -13,7 +13,7 @@ from snappytpu import api as jax_api
 from snappytpu.bench import corpus
 from snappytpu.format.varint import encode_varint
 from snappytpu.stream import framing
-from snappytpu_torch import api, cpu
+from snappytpu_torch import api, cpu, profiling
 from snappytpu_torch.format import constants as C
 from snappytpu_torch.model.decode import CorruptError  # the port's own: api raises it
 
@@ -76,20 +76,20 @@ def test_unaligned_valid_stream_needs_the_windowed_decoder(monkeypatch):
     calls = []
     real = api.decode_stream_vm
     monkeypatch.setattr(api, "decode_stream_vm", lambda *a: calls.append(a[0].shape[0]) or real(*a))
-    monkeypatch.setattr(api, "host_fallbacks", 0)
+    profiling.reset_counters()
     assert api.decompress(stream, device="cpu") == data == jax_api.decompress(stream)
-    assert calls == [2] and api.host_fallbacks == 0
+    assert calls == [2] and profiling.counters().get("decompress.host_fallbacks", 0) == 0
 
 
-def test_giant_literal_goes_to_the_host_decoder(monkeypatch):
+def test_giant_literal_goes_to_the_host_decoder():
     """A single op wider than a window: the JAX package's own route (the
     native sequential decoder, or the model decoder without it)."""
     payload = corpus.random_bytes(70_000, seed=2)
     n = len(payload) - 1
     stream = encode_varint(len(payload)) + bytes([62 << 2]) + n.to_bytes(3, "little") + payload
-    monkeypatch.setattr(api, "host_fallbacks", 0)
+    profiling.reset_counters()
     assert api.decompress(stream, device="cpu") == payload
-    assert api.host_fallbacks == 1
+    assert profiling.counters().get("decompress.host_fallbacks", 0) == 1
 
 
 def test_capacity_poison_raises(monkeypatch):

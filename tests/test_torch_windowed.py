@@ -19,7 +19,7 @@ from snappytpu.model import compress as model_compress
 from snappytpu.model.decode import CorruptError as JaxCorruptError
 from snappytpu.model.decode import decode_ops
 from snappytpu.stream import framing
-from snappytpu_torch import api
+from snappytpu_torch import api, profiling
 from snappytpu_torch.kernels import decode_vm2
 from snappytpu_torch.model import decode as port_model
 from snappytpu_torch.stream import framing as port_framing
@@ -135,18 +135,18 @@ def test_decompress_windowed_carries_context_across_batches(monkeypatch):
     assert len(calls) >= 2 and max(calls) == 2
 
 
-def test_far_reach_copy_falls_back_to_the_host_decoder(monkeypatch):
+def test_far_reach_copy_falls_back_to_the_host_decoder():
     lit = np.random.default_rng(61).integers(0, 256, 131_073, dtype=np.uint8)
     ops = b"".join(_lit(seg.tobytes()) for seg in (lit[:60000], lit[60000:120000], lit[120000:]))
     ops += _copy2(64, 61_000)
     expected = np.concatenate([lit, lit[131_073 - 61_000 : 131_073 - 61_000 + 64]]).tobytes()
     stream = encode_varint(131_073 + 64) + ops
-    monkeypatch.setattr(api, "host_fallbacks", 0)
+    profiling.reset_counters()
     assert api.decompress(stream, device="cpu") == expected == jax_api.decompress(stream)
     # the split starts the last chunk at 120000, so the copy's reach (61000
     # back from 131073) lies inside that chunk's 65536-byte context: the
     # windowed decoder proves it, as in the JAX package, and nothing falls back
-    assert api.host_fallbacks == 0
+    assert profiling.counters().get("decompress.host_fallbacks", 0) == 0
 
 
 def _windowed_agree(ops: np.ndarray, out_len: int):
