@@ -15,7 +15,11 @@ taking the same decode routes:
     host decoder, native or model, which decodes or rejects it.
 
 There is no power-of-two batch bucketing (it bounded jit recompiles only);
-a device call takes at most 128 blocks.
+a device call takes at most 128 blocks.  On a CUDA device the encoder's call
+replays one CUDA graph per (device, blocks in the call, profile) from the
+third call of that shape on (kernels/encode_v2.py): a stream of full
+batches and its tail needs two graphs a profile, and objects of many sizes
+one a tail size, each captured once.
 
 Each step of a call runs in a `profiling.span` named `snappy.<step>`
 (recorded only under a torch profiler).  compress: `snappy.compress` holds
@@ -25,7 +29,10 @@ then `join`, which tile it.  decompress: `snappy.decompress` holds `scan`,
 `compact`, then `join`; or `windowed` (K4, with its own `split`, `h2d`,
 `decode`, `d2h`), or `host_decode`.  Counters: `compress.d2h_bytes` and
 `compress.stream_bytes` (the encoder's output copied to the host, and the
-stream in it), `decompress.host_fallbacks`.
+stream in it), `decompress.host_fallbacks`, and the encoder's
+`encode.graph_replays`, `encode.graph_captures`, `encode.eager_calls` and
+`encode.graph_fallbacks` (one of the first three per device call), and
+`concat.graph_runs`, K1's runs inside the replays.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ import ctypes
 
 import torch
 
-from ..profiling import count  # concat.launches: kernel launches by concat_rows (the CUDA route only)
+from ..profiling import count  # concat.launches: host launches by concat_rows (the CUDA route only); K1's
+# runs inside a replayed encoder graph launch nothing here and count as concat.graph_runs (encode_v2)
 
 
 def concat_rows_ref(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch.Tensor:

@@ -24,15 +24,40 @@ unchanged; this docstring only records how the port differs.
 
 Every tensor stays on the device of the input blocks.  The encoder's own
 array code is plain PyTorch; only the concat is a kernel.
+
+The served entry, `encode_blocks_v2`, runs the unchanged chain
+`encode_block_core` as one CUDA graph per (device, B, profile): the chain is
+about 2,200 small launches whose shapes B and the profile fix, and no stage
+syncs with the host, so a replay puts the whole call on the card in one
+launch.  The gain rests on call shapes that recur, as the served path's
+do: a stream is calls of 128 blocks and one tail call.  A key's first call
+runs eagerly (the warm-up that capture needs: CUB's workspaces, the
+allocator's blocks, K1's library), its second captures (`GraphCache`),
+every later one copies the caller's inputs into the device's static
+buffers, replays, and returns clones of the static outputs, which the
+caller owns.  Every graph is kept: B is at most 128 (`GRAPH_MAX_BLOCKS`),
+so a device has at most 256 keys and captures each once at most.  A tensor
+on any other device, a batch of no blocks or of more than 128, and a call
+inside someone else's capture run the chain eagerly.  Nothing else chooses
+between the paths.  Counters (profiling's registry): `encode.graph_replays`,
+`encode.graph_captures`, `encode.eager_calls` (one of the three per call),
+`encode.graph_fallbacks` (a capture that raised: its key runs eagerly from
+then on, with a warning) and `concat.graph_runs` (K1's runs inside the
+replays).  `encode_block_core` and the stages stay eager for the tools that
+time them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import warnings
 from typing import NamedTuple
 
 import torch
 
 from ..format import constants as C
+from ..profiling import count, counters
 
 from .concat import concat_rows
 
@@ -631,9 +656,173 @@ def check_blocks(blocks_u8: torch.Tensor, lens: torch.Tensor) -> None:
         raise ValueError("lens must be (B,) on the blocks' device")
 
 
+# The largest call that runs as a graph: api.DEVICE_BATCH, the served path's
+# device call.  A device's keys are then at most 128 batch sizes x 2
+# profiles, and the cache keeps every graph it captures: traffic of many
+# object sizes (a tail call of every size from 1 to 127 blocks) costs at
+# most one capture a key over the process's life, and no graph is evicted
+# to be captured again.  The pool keeps no graph's outputs and starts from
+# the full batch's graph (_CudaGraphs), so the 256 graphs share one 128-block
+# graph's working set.
+GRAPH_MAX_BLOCKS = 128
+_NO_LOCK = contextlib.nullcontext()
+
+
+def graph_key(blocks_u8: torch.Tensor, dense: bool):
+    """(device index, B, dense) of a call that may run as a CUDA graph: a
+    CUDA tensor of 1 to GRAPH_MAX_BLOCKS blocks outside another capture.
+    Else None."""
+    dev, B = blocks_u8.device, blocks_u8.shape[0]
+    if dev.type != "cuda" or not 0 < B <= GRAPH_MAX_BLOCKS or torch.cuda.is_current_stream_capturing():
+        return None
+    return (dev.index, B, bool(dense))
+
+
+class GraphCache:
+    """Which calls replay a graph.  `capture(key, *args)` returns a function
+    of the same arguments that replays the key's graph (the CUDA one is
+    `_CudaGraphs`); `run(key, eager, *args)` runs a key's first call through
+    `eager`, captures on its second and replays after that.  The gain rests
+    on call shapes that recur: a key called once is never captured, and a
+    captured one is kept for the cache's life (graph_key bounds the keys).
+    A capture that raises marks its key eager for the cache's life and
+    counts `encode.graph_fallbacks`.  A lock keeps the bookkeeping, a
+    capture and a replay whole between threads."""
+
+    def __init__(self, capture):
+        self.capture = capture
+        self.graphs: dict = {}  # key -> replay
+        self.seen: set = set()  # keys run at least once
+        self.eager: set = set()  # keys whose capture raised
+        self._lock = threading.Lock()
+
+    def run(self, key, eager, *args):
+        with self._lock if key is not None else _NO_LOCK:
+            replay = None if key is None else self._replay(key, args)
+            if replay is not None:
+                return replay(*args)
+            count("encode.eager_calls")
+        return eager(*args)
+
+    def _replay(self, key, args):
+        """The key's replay (captured now on its second call), or None to run eagerly."""
+        if key in self.graphs:
+            count("encode.graph_replays")
+            return self.graphs[key]
+        if key not in self.seen or key in self.eager:
+            self.seen.add(key)
+            return None
+        try:
+            replay = self.capture(key, *args)
+        except RuntimeError as err:  # CUDA's and K1's errors: the key stays on the eager chain, counted and said
+            self.eager.add(key)
+            count("encode.graph_fallbacks")
+            warnings.warn(f"encoder graph capture failed for {key}; it runs eagerly: {err!r}", RuntimeWarning)
+            return None
+        self.graphs[key] = replay
+        count("encode.graph_captures")
+        return replay
+
+
+class _Device:
+    """What a device's graphs share: the memory pool, the capture stream,
+    and the static inputs and outputs allocated outside the pool, for
+    GRAPH_MAX_BLOCKS blocks, of which a graph of B blocks uses the first B.
+    So a graph holds nothing in the pool between replays, and every capture
+    reuses the blocks the others' intermediates take while they run."""
+
+    def __init__(self, dev: int):
+        with torch.cuda.device(dev):
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream()
+            self.blocks = torch.empty((GRAPH_MAX_BLOCKS, BS), dtype=torch.uint8, device="cuda")
+            self.lens = torch.empty((GRAPH_MAX_BLOCKS,), dtype=_I32, device="cuda")
+            self.rows = torch.empty((GRAPH_MAX_BLOCKS, PAD_OUT), dtype=torch.uint8, device="cuda")
+            self.totals = torch.empty((GRAPH_MAX_BLOCKS,), dtype=_I32, device="cuda")
+        self.last = None  # the stream of the device's last replay
+
+
+def _record(blocks, lens, dense, rows, totals) -> None:
+    """The chain on the static inputs, its answer copied into the static
+    outputs; its own tensors are freed when it returns, inside the capture."""
+    got_rows, got_totals = encode_block_core(blocks, lens, dense)
+    rows.copy_(got_rows)
+    totals.copy_(got_totals)
+
+
+class _CudaGraphs:
+    """GraphCache's capture on CUDA: `encode_block_core` captured on the
+    device's capture stream into its one graph memory pool, from the
+    device's static inputs into its static outputs (`_record`).  Unlike
+    `torch.cuda.graph`, a capture neither syncs the device nor empties the
+    allocator's cache: a capture records and runs nothing, and the eager
+    calls of keys not yet captured keep their cached blocks.
+
+    Sharing the pool and the inputs is safe because replays run one after
+    another on the caller's stream (the GraphCache lock; a replay on another
+    stream than the device's last first waits for that stream) and each
+    replay's outputs are cloned before any other replay can start: a later
+    replay may overwrite the static inputs and outputs, never a caller's
+    clone.  K1's launches recorded in a graph are counted as
+    `concat.graph_runs` at each of its replays."""
+
+    def __init__(self):
+        self.devices: dict = {}  # device index -> _Device
+        self.full: dict = {}  # (device index, GRAPH_MAX_BLOCKS, dense) -> its replay
+
+    def __call__(self, key, _blocks_u8, _lens):
+        """The key's replay.  A device's first capture in a profile captures
+        that profile's full batch first, and keeps it for when its key
+        comes: the pool then holds the largest graph's blocks, which every
+        smaller graph's capture splits.  With it, and no graph's outputs in
+        the pool, all 256 keys of an H100 took 3.01 GB of pool, the dense
+        128-block graph's working set; captured from the smallest up with
+        their outputs in the pool, 10.8 GB."""
+        dev, _, dense = key
+        full = (dev, GRAPH_MAX_BLOCKS, dense)
+        if full not in self.full:
+            self.full[full] = self._capture(full)
+        return self.full[full] if key == full else self._capture(key)
+
+    def _capture(self, key):
+        dev, B, dense = key
+        if dev not in self.devices:
+            self.devices[dev] = _Device(dev)
+        d = self.devices[dev]
+        blocks, lens, rows, totals = d.blocks[:B], d.lens[:B], d.rows[:B], d.totals[:B]
+        graph = torch.cuda.CUDAGraph()
+        k1_before = counters().get("concat.launches", 0)
+        with torch.cuda.device(dev), torch.cuda.stream(d.stream):
+            graph.capture_begin(pool=d.pool, capture_error_mode="thread_local")
+            try:
+                _record(blocks, lens, dense, rows, totals)
+            finally:
+                graph.capture_end()
+        k1 = counters().get("concat.launches", 0) - k1_before
+
+        def replay(blocks_u8, lens_in):
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream()
+                if d.last is not None and d.last != stream:
+                    stream.wait_stream(d.last)
+                d.last = stream
+                blocks.copy_(blocks_u8)
+                lens.copy_(lens_in)
+                graph.replay()
+                count("concat.graph_runs", k1)
+                return rows.clone(), totals.clone()
+
+        return replay
+
+
+_GRAPHS = GraphCache(_CudaGraphs())
+
+
 def encode_blocks_v2(blocks_u8: torch.Tensor, lens: torch.Tensor, dense: bool = True):
     """Batched block encode: (B, BS) uint8 + (B,) int32 ->
     ((B, PAD_OUT) uint8, (B,) int32), on the device of the inputs.
-    dense=False is the `fast` profile."""
+    dense=False is the `fast` profile.  On CUDA a repeated (B, profile)
+    replays a graph of `encode_block_core` (module docstring)."""
     check_blocks(blocks_u8, lens)
-    return encode_block_core(blocks_u8.contiguous(), lens.to(_I32), dense)
+    return _GRAPHS.run(graph_key(blocks_u8, dense),
+                       lambda b, n: encode_block_core(b.contiguous(), n.to(_I32), dense), blocks_u8, lens)
