@@ -1,0 +1,11 @@
+"""The share of a decompress cell's traced stretch in which the card ran
+nothing while the host was inside the program's `snappy.scan`,
+`snappy.split`, `snappy.tape`, `snappy.compact` or `snappy.join` spans, in %."""
+
+from benchmark import decode_spans, program_spans
+
+
+def read(view):
+    if not decode_spans.decompress_view(view) or not view.device:
+        return None
+    return 100.0 * program_spans.idle_s(view, program_spans.steps(view, *decode_spans.FRAMING)) / view.window_s()

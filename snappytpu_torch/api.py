@@ -10,9 +10,17 @@ taking the same decode routes:
   * a valid stream whose ops straddle the 64 KiB grid decodes through the
     windowed decoder K4 (kernels/decode_vm2.py), in batches of
     _WINDOWED_BATCH chunks with the 64 KiB tail carried between calls;
+    so does a splittable stream in which the block route flags a block
+    not ok: raw Snappy lets a copy reach back across the grid, which no
+    block alone can decode, so the whole stream is decoded again here
+    (the JAX package rejects such a stream);
   * a stream no window can hold (a single op wider than 64 KiB, a copy
     reaching past the window, or a corrupt one) goes to the sequential
-    host decoder, native or model, which decodes or rejects it.
+    host decoder, native or model, which decodes it or raises CorruptError.
+
+The tape route's host arrays (rows, tapes, the decoded rows and stream)
+are the calling thread's reused buffers (hostbuf.py), pinned where they
+cross to a CUDA device, so a call's time does not follow the allocator's.
 
 There is no power-of-two batch bucketing (it bounded jit recompiles only);
 a device call takes at most 128 blocks.  On a CUDA device the encoder's call
@@ -29,7 +37,10 @@ then `join`, which tile it.  decompress: `snappy.decompress` holds `scan`,
 `compact`, then `join`; or `windowed` (K4, with its own `split`, `h2d`,
 `decode`, `d2h`), or `host_decode`.  Counters: `compress.d2h_bytes` and
 `compress.stream_bytes` (the encoder's output copied to the host, and the
-stream in it), `decompress.host_fallbacks`, and the encoder's
+stream in it); `decompress.device_calls` and `decompress.blocks` (per
+block-route device call, and its blocks), `decompress.reroutes` (streams
+the block route handed to the windowed route), `decompress.windowed_calls`
+(K4 calls) and `decompress.host_fallbacks`; and the encoder's
 `encode.graph_replays`, `encode.graph_captures`, `encode.eager_calls` and
 `encode.graph_fallbacks` (one of the first three per device call), and
 `concat.graph_runs`, K1's runs inside the replays.
@@ -40,7 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import cpu, profiling
+from . import cpu, hostbuf, profiling
 from .format import constants as C
 from .format.varint import encode_varint
 from .kernels.decode_tape import decode_blocks_tape
@@ -166,6 +177,7 @@ def _decompress_windowed(split, *, device) -> bytes:
             )
         with profiling.span("snappy.decode"):
             out, ok = decode_stream_vm(*args)
+        profiling.count("decompress.windowed_calls")
         with profiling.span("snappy.d2h"):
             out, ok = out.cpu().numpy(), ok.cpu().numpy()
         if not ok.all():
@@ -190,15 +202,17 @@ def _unsplittable(arr: np.ndarray, ops: np.ndarray, out_len: int, device) -> byt
         # host decoder decodes the valid ones and raises on the corrupt ones
         profiling.count("decompress.host_fallbacks")
         with profiling.span("snappy.host_decode"):
-            if cpu.available:
+            if not cpu.available:
+                return decode_ops(ops, out_len).tobytes()
+            try:
                 return cpu.decompress(arr)
-            return decode_ops(ops, out_len).tobytes()
+            except cpu.NativeError as e:
+                raise CorruptError(str(e)) from e
 
 
 def decompress(data: bytes | np.ndarray, *, device) -> bytes:
     """Decode a raw Snappy stream on `device` by the routes in the module
-    docstring; CorruptError (or the native decoder's NativeError) if the
-    stream is malformed."""
+    docstring; CorruptError if the stream is malformed."""
     with profiling.span("snappy.decompress"):
         return _decompress(data, device)
 
@@ -211,41 +225,67 @@ def _decompress(data, device) -> bytes:
             raise CorruptError("trailing garbage after empty stream")
         return b""
     ops = arr[ops_start:]
-    if cpu.available:
-        try:
-            with profiling.span("snappy.scan"):
-                offs, out_lens = cpu.scan_ops(ops, out_len)
-            with profiling.span("snappy.split"):
-                padded, comp_lens = cpu.split_rows(ops, offs, C.MAX_COMPRESSED_BLOCK_SIZE)
-        except cpu.NativeError:
-            return _unsplittable(arr, ops, out_len, device)
-    else:
-        try:
-            with profiling.span("snappy.split"):
-                chunks, out_lens = framing.split_ops_stream(ops, out_len)
-        except CorruptError:
-            return _unsplittable(arr, ops, out_len, device)
+    if not cpu.available:
+        return _decompress_k2(arr, ops, out_len, device)
+    try:
+        with profiling.span("snappy.scan"):
+            offs, out_lens = cpu.scan_ops(ops, out_len)
+    except cpu.NativeError:
+        return _unsplittable(arr, ops, out_len, device)
+    nb, pinned = offs.size, hostbuf.pinned_for(device)
+    try:
         with profiling.span("snappy.split"):
-            padded, comp_lens = framing.pad_chunks(chunks)
+            padded, comp_lens = cpu.split_rows(ops, offs, C.MAX_COMPRESSED_BLOCK_SIZE, out=(
+                hostbuf.take("api.rows", (nb, C.MAX_COMPRESSED_BLOCK_SIZE), torch.uint8, pinned=pinned).numpy(),
+                hostbuf.take("api.row_lens", (nb,), torch.int32).numpy()))
+    except cpu.NativeError:  # a row wider than a padded one: a valid stream of tiny ops, or a corrupt one
+        return _unsplittable(arr, ops, out_len, device)
+    out_lens = out_lens.astype(np.int32)
+    decoded = hostbuf.take("api.decoded", (out_len,), torch.uint8).numpy()
+    written = 0
+    for start in range(0, nb, DEVICE_BATCH):
+        rows, cl, ol = (a[start : start + DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
+        out, ok = decode_blocks_tape(rows, cl, ol, device=device)  # host-built tapes; spans inside
+        profiling.count("decompress.device_calls")
+        profiling.count("decompress.blocks", rows.shape[0])
+        with profiling.span("snappy.d2h"):
+            host = hostbuf.take("api.d2h", tuple(out.shape), torch.uint8, pinned=pinned)
+            host.copy_(out)
+            ok = ok.cpu().numpy()
+        if not ok.all():  # a copy across the grid, or a malformed stream: K4 or the host decides
+            profiling.count("decompress.reroutes")
+            return _unsplittable(arr, ops, out_len, device)
+        with profiling.span("snappy.compact"):
+            written += cpu.compact_into(host.numpy(), ol, decoded[written:])
+    with profiling.span("snappy.join"):
+        return decoded[:written].tobytes()
+
+
+def _decompress_k2(arr: np.ndarray, ops: np.ndarray, out_len: int, device) -> bytes:
+    """The block route without the native runtime: K2 parses each block."""
+    try:
+        with profiling.span("snappy.split"):
+            chunks, out_lens = framing.split_ops_stream(ops, out_len)
+    except CorruptError:
+        return _unsplittable(arr, ops, out_len, device)
+    with profiling.span("snappy.split"):
+        padded, comp_lens = framing.pad_chunks(chunks)
     out_lens = np.asarray(out_lens, np.int32)
     pieces = []
     for start in range(0, padded.shape[0], DEVICE_BATCH):
         rows, cl, ol = (a[start : start + DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
-        if cpu.available:  # host-built tapes, the device only moves bytes; spans inside
-            out, ok = decode_blocks_tape(rows, cl, ol, device=device)
-        else:
-            with profiling.span("snappy.h2d"):
-                args = [torch.from_numpy(a).to(device) for a in (rows, cl, ol)]
-            with profiling.span("snappy.decode"):
-                out, ok = decode_blocks(*args)
+        with profiling.span("snappy.h2d"):
+            args = [torch.from_numpy(a).to(device) for a in (rows, cl, ol)]
+        with profiling.span("snappy.decode"):
+            out, ok = decode_blocks(*args)
+        profiling.count("decompress.device_calls")
+        profiling.count("decompress.blocks", rows.shape[0])
         with profiling.span("snappy.d2h"):
             out, ok = out.cpu().numpy(), ok.cpu().numpy()
-        if not ok.all():
-            raise CorruptError(f"malformed block(s) {(start + np.nonzero(~ok)[0]).tolist()}")
+        if not ok.all():  # a copy across the grid, or a malformed stream: K4 or the host decides
+            profiling.count("decompress.reroutes")
+            return _unsplittable(arr, ops, out_len, device)
         with profiling.span("snappy.compact"):
-            if cpu.available:
-                pieces.append(cpu.compact(out, ol))
-            else:
-                pieces.extend(out[i, : ol[i]].tobytes() for i in range(out.shape[0]))
+            pieces.extend(out[i, : ol[i]].tobytes() for i in range(out.shape[0]))
     with profiling.span("snappy.join"):
         return b"".join(pieces)

@@ -162,31 +162,45 @@ def scan_ops(ops: np.ndarray, total_out: int, block_size: int = 65536):
 
 def compact(rows: np.ndarray, lens: np.ndarray) -> bytes:
     """Native gather of variable-length rows into one contiguous stream."""
+    out = np.empty(max(int(np.sum(lens, dtype=np.int64)), 1), dtype=np.uint8)
+    return out[: compact_into(rows, lens, out)].tobytes()
+
+
+def compact_into(rows: np.ndarray, lens: np.ndarray, out: np.ndarray) -> int:
+    """compact into the front of the uint8 array `out`; returns the bytes
+    written.  NativeError if they do not fit."""
     rows = np.ascontiguousarray(rows, dtype=np.uint8)
     lens32 = np.ascontiguousarray(lens, dtype=np.int32)
-    cap = int(lens32.sum())
-    out = np.empty(max(cap, 1), dtype=np.uint8)
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("out must be a contiguous uint8 array")
     w = _lib.stpu_compact(
         _u8(rows), rows.shape[1], lens32.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        rows.shape[0], _u8(out), cap,
+        rows.shape[0], _u8(out), out.size,
     )
     if w < 0:
         raise NativeError("compact overflow")
-    return out[:w].tobytes()
+    return int(w)
 
 
 def build_tapes(comp_rows: np.ndarray, comp_lens: np.ndarray,
                 out_lens: np.ndarray, comp_off: int, out_base: int,
-                max_recs: int):
+                max_recs: int, out=None):
     """Host movement-tape builder for the movement-only device decoder:
     (B, stride) padded comp rows + per-block lens -> ((B, 2*max_recs) int32
     tapes, (B,) int32 n_recs).  n_recs is -9 where the tape overflowed
     (caller falls back to the parsing VM) and -10 where the stream is
-    malformed (same accept set as the VM)."""
+    malformed (same accept set as the VM).  `out`, a (tapes, nrecs) pair
+    of those shapes, is written instead of new arrays; past its records a
+    tape then holds what the array held (every reader stops at n_recs)."""
     comp_rows = np.ascontiguousarray(comp_rows, dtype=np.uint8)
     B, stride = comp_rows.shape
-    tapes = np.zeros((B, 2 * max_recs), dtype=np.int32)
-    nrecs = np.empty(B, dtype=np.int32)
+    if out is None:
+        tapes, nrecs = np.zeros((B, 2 * max_recs), dtype=np.int32), np.empty(B, dtype=np.int32)
+    else:
+        tapes, nrecs = out
+        if tapes.shape != (B, 2 * max_recs) or tapes.dtype != np.int32 or not tapes.flags.c_contiguous \
+                or nrecs.shape != (B,) or nrecs.dtype != np.int32:
+            raise ValueError(f"out must be a contiguous ({B}, {2 * max_recs}) and a ({B},) int32 array")
     i32p = ctypes.POINTER(ctypes.c_int32)
     for i in range(B):
         nrecs[i] = _lib.stpu_build_tape(
@@ -196,14 +210,21 @@ def build_tapes(comp_rows: np.ndarray, comp_lens: np.ndarray,
     return tapes, nrecs
 
 
-def split_rows(stream: np.ndarray, cuts: np.ndarray, stride: int):
+def split_rows(stream: np.ndarray, cuts: np.ndarray, stride: int, out=None):
     """Native scatter of a contiguous stream into zero-padded fixed-stride
-    rows given per-row start offsets."""
+    rows given per-row start offsets; the last row ends at the stream's
+    end.  `out`, a contiguous (rows, lens) pair of (n, stride) uint8 and
+    (n,) int32, is written instead of new arrays."""
     stream = np.ascontiguousarray(stream, dtype=np.uint8)
     cuts64 = np.ascontiguousarray(cuts, dtype=np.int64)
     nrows = cuts64.size
-    rows = np.empty((nrows, stride), dtype=np.uint8)
-    lens = np.empty(nrows, dtype=np.int32)
+    if out is None:
+        rows, lens = np.empty((nrows, stride), dtype=np.uint8), np.empty(nrows, dtype=np.int32)
+    else:
+        rows, lens = out
+        if rows.shape != (nrows, stride) or rows.dtype != np.uint8 or not rows.flags.c_contiguous \
+                or lens.shape != (nrows,) or lens.dtype != np.int32:
+            raise ValueError(f"out must be a contiguous ({nrows}, {stride}) uint8 and a ({nrows},) int32 array")
     rc = _lib.stpu_split(
         _u8(stream), stream.size,
         cuts64.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), nrows,

@@ -36,7 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import profiling
+from .. import hostbuf, profiling
 from ..format import constants as C
 
 from .decode_vm import decode_blocks_vm
@@ -53,13 +53,14 @@ TAPE_MAX = 12288                     # records per block, as the JAX package
 # decode_tape.k_launches, kernel launches by _run_tape and by _run_tape_k.
 
 
-def build_tapes(comp_np: np.ndarray, comp_lens: np.ndarray, out_lens: np.ndarray):
-    """Host tape build for a padded batch -> (tapes, nrecs) numpy arrays."""
+def build_tapes(comp_np: np.ndarray, comp_lens: np.ndarray, out_lens: np.ndarray, out=None):
+    """Host tape build for a padded batch -> (tapes, nrecs) numpy arrays,
+    written into `out`, a (tapes, nrecs) pair, where given."""
     from .. import cpu
 
     if not cpu.available:
         raise RuntimeError("native runtime unavailable; use decode_blocks_vm")
-    return cpu.build_tapes(comp_np, comp_lens, out_lens, COMP_OFF, OUT_BASE, TAPE_MAX)
+    return cpu.build_tapes(comp_np, comp_lens, out_lens, COMP_OFF, OUT_BASE, TAPE_MAX, out)
 
 
 def records(tape: list, nr: int, cap: int):
@@ -210,23 +211,30 @@ def _run_tape_k(tapes: torch.Tensor, nrecs: torch.Tensor, comp_u8: torch.Tensor,
 
 def stage(comp_np: np.ndarray, tapes: np.ndarray, nrecs: np.ndarray, *, device):
     """Copy a batch's rows, its tapes cut to the longest tape's records, and
-    nrecs to `device`."""
+    nrecs to `device`, the tapes through this thread's staging buffer
+    (hostbuf; pinned for a CUDA device).  Every copy is a new tensor."""
     S = max(int(nrecs.max(initial=0)), 1)
-    return (torch.from_numpy(np.ascontiguousarray(tapes[:, : 2 * S])).to(device),
-            torch.from_numpy(nrecs).to(device),
-            torch.from_numpy(comp_np).to(device))
+    staged = hostbuf.take("decode_tape.tapes", (tapes.shape[0], 2 * S), torch.int32, pinned=hostbuf.pinned_for(device))
+    np.copyto(staged.numpy(), tapes[:, : 2 * S])
+    return (staged.to(device, copy=True),
+            torch.from_numpy(nrecs).to(device, copy=True),
+            torch.from_numpy(comp_np).to(device, copy=True))
 
 
 def decode_blocks_tape(comp_u8, comp_lens, out_lens, *, device):
     """Batched host-tape decode: (B, PAD_OUT) uint8 host rows + (B,) lens ->
     ((B, BS) uint8, (B,) bool) on `device`.  Blocks whose tape overflows
     TAPE_MAX are decoded by the block decoder K2 on the same device;
-    malformed blocks report not ok.  Equal to decode_blocks_vm."""
+    malformed blocks report not ok.  Equal to decode_blocks_vm.  The tapes
+    are built into this thread's host buffers (hostbuf)."""
     comp_np = np.ascontiguousarray(comp_u8, dtype=np.uint8)
     cl = np.ascontiguousarray(comp_lens, dtype=np.int32)
     ol = np.ascontiguousarray(out_lens, dtype=np.int32)
+    B = comp_np.shape[0]
     with profiling.span("snappy.tape"):
-        tapes, nrecs = build_tapes(comp_np, cl, ol)
+        tapes, nrecs = build_tapes(comp_np, cl, ol, out=(
+            hostbuf.take("decode_tape.build", (B, 2 * TAPE_MAX), torch.int32).numpy(),
+            hostbuf.take("decode_tape.nrecs", (B,), torch.int32).numpy()))
     with profiling.span("snappy.h2d"):
         tp, nr, rows = stage(comp_np, tapes, nrecs, device=device)
     with profiling.span("snappy.decode"):

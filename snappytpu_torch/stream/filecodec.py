@@ -10,8 +10,11 @@ and dropped, so resident memory is O(window), independent of file size.
   * decompress_file: the native op-boundary scan walks the stream through a
     read-only memmap, and each window of blocks is copied, decoded by the
     tape decoder (host tapes, device moves), checked and appended.  Streams
-    the scan cannot split, blocks wider than a compressed row, and installs
-    without the native runtime go to the in-memory api.decompress.
+    the scan cannot split, blocks wider than a compressed row, a block the
+    tape decoder flags not ok (a copy reaching back across the 64 KiB grid,
+    which raw Snappy allows, or a malformed block), and installs without
+    the native runtime go to the in-memory api.decompress, which decodes a
+    valid stream and raises CorruptError on a malformed one.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ def _in_memory(m: np.ndarray, dst, device) -> int:
 def decompress_file(src: str | os.PathLike, dst: str | os.PathLike,
                     window_blocks: int = _DEF_WINDOW_BLOCKS, *, device) -> int:
     """Stream-decompress a raw Snappy file on `device`; returns the output
-    size.  CorruptError (or NativeError) if the stream is malformed."""
+    size.  CorruptError if the stream is malformed."""
     from .. import cpu
 
     m = np.memmap(src, dtype=np.uint8, mode="r")
@@ -76,21 +79,33 @@ def decompress_file(src: str | os.PathLike, dst: str | os.PathLike,
         # a valid stream (e.g. all 1-byte literals) may carry more than a
         # compressed row per 64 KiB block; the windowed route decodes it
         return _in_memory(m, dst, device)
-    written = 0
     with open(dst, "wb") as w:
-        for g0 in range(0, offs.size, window_blocks):
-            g1 = min(g0 + window_blocks, offs.size)
-            base = int(offs[g0])
-            comp_win = np.array(ops[base : int(ends[g1 - 1])])  # window copy
-            rows, comp_lens = cpu.split_rows(comp_win, offs[g0:g1] - base, C.MAX_COMPRESSED_BLOCK_SIZE)
-            win_lens = lens[g0:g1].astype(np.int32)
-            for b0 in range(0, rows.shape[0], 128):
-                b1 = b0 + 128
-                out, ok = decode_blocks_tape(rows[b0:b1], comp_lens[b0:b1], win_lens[b0:b1], device=device)
-                out, ok = out.cpu().numpy(), ok.cpu().numpy()
-                if not ok.all():
-                    raise CorruptError(f"malformed block(s) {(g0 + b0 + np.nonzero(~ok)[0]).tolist()}")
-                written += w.write(cpu.compact(out, win_lens[b0:b1]))
+        written = _decode_windows(ops, offs, ends, lens, window_blocks, w, device)
+    if written is None:  # a block not ok: api.decompress decides, as for a stream in memory
+        return _in_memory(m, dst, device)
     if written != out_len:
         raise CorruptError(f"decoded {written} bytes, preamble said {out_len}")
+    return written
+
+
+def _decode_windows(ops, offs, ends, lens, window_blocks: int, w, device) -> int | None:
+    """Decode the blocks window by window on the tape route into the file
+    `w`; the bytes written, or None at the first window with a block not
+    ok (a copy reaching back across the 64 KiB grid, or a malformed one)."""
+    from .. import cpu
+
+    written = 0
+    for g0 in range(0, offs.size, window_blocks):
+        g1 = min(g0 + window_blocks, offs.size)
+        base = int(offs[g0])
+        comp_win = np.array(ops[base : int(ends[g1 - 1])])  # window copy
+        rows, comp_lens = cpu.split_rows(comp_win, offs[g0:g1] - base, C.MAX_COMPRESSED_BLOCK_SIZE)
+        win_lens = lens[g0:g1].astype(np.int32)
+        for b0 in range(0, rows.shape[0], 128):
+            b1 = b0 + 128
+            out, ok = decode_blocks_tape(rows[b0:b1], comp_lens[b0:b1], win_lens[b0:b1], device=device)
+            out, ok = out.cpu().numpy(), ok.cpu().numpy()
+            if not ok.all():
+                return None
+            written += w.write(cpu.compact(out, win_lens[b0:b1]))
     return written

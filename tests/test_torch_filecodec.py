@@ -1,8 +1,10 @@
 """The port's bounded-memory file codec (device="cpu") against the JAX
 package's, on the legs of tests/test_filecodec.py: byte-equal compressed
-files, multi-window round trips, empty and corrupt files, and the
-oversized-compressed-block fallback through the windowed decoder."""
+files, multi-window round trips, empty and corrupt files, the
+oversized-compressed-block fallback through the windowed decoder, and a
+valid copy across the 64 KiB grid, which the port decodes."""
 
+import numpy as np
 import pytest
 
 from snappytpu import api as jax_api
@@ -11,7 +13,7 @@ from snappytpu.format.varint import encode_varint
 from snappytpu.stream import filecodec as jax_filecodec
 from snappytpu_torch import api
 from snappytpu_torch.model.decode import CorruptError  # the port's own: the file codec raises it
-from snappytpu_torch.stream import filecodec
+from snappytpu_torch.stream import filecodec, framing
 
 
 @pytest.mark.parametrize("nbytes", [0, 1, 65536, 3 * 65536 + 17, 9 * 65536 + 1])
@@ -84,3 +86,27 @@ def test_oversized_compressed_block_goes_to_the_windowed_decoder(tmp_path, monke
     assert filecodec.decompress_file(comp, out, window_blocks=1, device="cpu") == len(data)
     assert out.read_bytes() == data
     assert calls and sum(calls) >= 4
+
+
+@pytest.mark.parametrize("window_blocks", [1, 2])
+def test_a_copy_across_the_grid_decodes_as_in_memory(tmp_path, window_blocks):
+    """A valid stream whose copy opens block 1 and reaches 500 bytes back
+    into block 0, which raw Snappy allows: the tape decoder flags block 1
+    not ok, and decompress_file hands the stream to api.decompress, which
+    decodes it through the windowed route; the JAX package rejects it."""
+    head = corpus.mixed(65536, seed=34)
+    rest = corpus.mixed(65536 - 40 + 300, seed=35)
+    want = head + head[-500:-460] + rest
+    _, start = framing.read_preamble(np.frombuffer(api.compress(head, "fast", device="cpu"), np.uint8))
+    ops = api.compress(head, "fast", device="cpu")[start:]
+    cut = 65536 - 40  # literals that end at the grid
+    stream = (encode_varint(len(want)) + ops + bytes([2 | (39 << 2)]) + (500).to_bytes(2, "little")
+              + bytes([61 << 2]) + (cut - 1).to_bytes(2, "little") + rest[:cut]
+              + bytes([61 << 2]) + (len(rest) - cut - 1).to_bytes(2, "little") + rest[cut:])
+    comp, out = tmp_path / "c.snappy", tmp_path / "out.raw"
+    comp.write_bytes(stream)
+    assert api.decompress(stream, device="cpu") == want
+    with pytest.raises(ValueError):
+        jax_api.decompress(stream)
+    assert filecodec.decompress_file(comp, out, window_blocks=window_blocks, device="cpu") == len(want)
+    assert out.read_bytes() == want
