@@ -4,9 +4,15 @@ with host framing, on an explicit torch device.
 The counterpart of snappytpu.api, producing byte-identical streams and
 taking the same decode routes:
 
-  * a block-splittable stream decodes as independent blocks: through the
-    tape decoder K5 (host-built movement tapes, kernels/decode_tape.py) when
-    the native runtime is present, else through the block decoder K2;
+  * a block-splittable stream decodes as independent blocks, split into
+    rows on the host (by the native runtime where present, else in Python).
+    On a CUDA device the block decoder K2 parses and moves the rows on the
+    card (kernels/decode_vm4.py), where the JAX package builds host tapes
+    for its tape decoder: the output, the ok flags and the accept set are
+    the same (PERF.md §6 times both routes by call size).  On another
+    device, with the native runtime, the tape decoder K5 runs host-built
+    movement tapes (kernels/decode_tape.py), the JAX package's route;
+    without it, K2;
   * a valid stream whose ops straddle the 64 KiB grid decodes through the
     windowed decoder K4 (kernels/decode_vm2.py), in batches of
     _WINDOWED_BATCH chunks with the 64 KiB tail carried between calls;
@@ -18,7 +24,7 @@ taking the same decode routes:
     reaching past the window, or a corrupt one) goes to the sequential
     host decoder, native or model, which decodes it or raises CorruptError.
 
-The tape route's host arrays (rows, tapes, the decoded rows and stream)
+The block route's host arrays (rows, tapes, the decoded rows and stream)
 are the calling thread's reused buffers (hostbuf.py), pinned where they
 cross to a CUDA device, so a call's time does not follow the allocator's.
 
@@ -33,14 +39,16 @@ Each step of a call runs in a `profiling.span` named `snappy.<step>`
 (recorded only under a torch profiler).  compress: `snappy.compress` holds
 `pack`, then per device call `h2d`, `encode`, `d2h`, `rows`, `compact`,
 then `join`, which tile it.  decompress: `snappy.decompress` holds `scan`,
-`split`, per device call `tape` (the tape route), `h2d`, `decode`, `d2h`,
-`compact`, then `join`; or `windowed` (K4, with its own `split`, `h2d`,
-`decode`, `d2h`), or `host_decode`.  Counters: `compress.d2h_bytes` and
+`split`, per device call `tape` (K5's route only), `h2d`, `decode`, `d2h`,
+`compact`, then `join` (without the native runtime two `split`s and no
+`scan`); or `windowed` (K4, with its own `split`, `h2d`, `decode`, `d2h`),
+or `host_decode`.  Counters: `compress.d2h_bytes` and
 `compress.stream_bytes` (the encoder's output copied to the host, and the
 stream in it); `decompress.device_calls` and `decompress.blocks` (per
-block-route device call, and its blocks), `decompress.reroutes` (streams
-the block route handed to the windowed route), `decompress.windowed_calls`
-(K4 calls) and `decompress.host_fallbacks`; and the encoder's
+block-route device call, and its blocks), `decompress.k2_calls` (the
+block-route calls K2 parsed), `decompress.reroutes` (streams the block
+route handed to the windowed route), `decompress.windowed_calls` (K4
+calls) and `decompress.host_fallbacks`; and the encoder's
 `encode.graph_replays`, `encode.graph_captures`, `encode.eager_calls` and
 `encode.graph_fallbacks` (one of the first three per device call), and
 `concat.graph_runs`, K1's runs inside the replays.
@@ -240,12 +248,53 @@ def _decompress(data, device) -> bytes:
                 hostbuf.take("api.row_lens", (nb,), torch.int32).numpy()))
     except cpu.NativeError:  # a row wider than a padded one: a valid stream of tiny ops, or a corrupt one
         return _unsplittable(arr, ops, out_len, device)
-    out_lens = out_lens.astype(np.int32)
+    decode = _decode_k2 if parses_on_card(device) else decode_blocks_tape  # K5's tapes built on the host, in its spans
+    return _block_calls(arr, ops, out_len, padded, comp_lens, out_lens.astype(np.int32), device, decode)
+
+
+def parses_on_card(device) -> bool:
+    """Whether the block route hands a host stream's split rows to K2, which
+    parses and moves them on the card, rather than building K5's tapes on
+    the host: on a CUDA device.  K2's call took less time than the tape
+    route's at every call size timed, 1 to 128 blocks (PERF.md §6)."""
+    return torch.device(device).type == "cuda"
+
+
+def _decode_k2(rows, comp_lens, out_lens, *, device):
+    """K2 on host rows: the rows and lengths copied to `device`, where the
+    card parses and moves each block."""
+    with profiling.span("snappy.h2d"):
+        args = [torch.from_numpy(a).to(device) for a in (rows, comp_lens, out_lens)]
+    with profiling.span("snappy.decode"):
+        out, ok = decode_blocks(*args)
+    profiling.count("decompress.k2_calls")
+    return out, ok
+
+
+def _compact_into(rows: np.ndarray, lens: np.ndarray, out: np.ndarray) -> int:
+    """Each row's first lens[i] bytes, in order, into the front of `out`;
+    returns the bytes written."""
+    if cpu.available:
+        return cpu.compact_into(rows, lens, out)
+    written = 0
+    for row, n in zip(rows, lens.tolist()):
+        out[written : written + n] = row[:n]
+        written += n
+    return written
+
+
+def _block_calls(arr, ops, out_len, padded, comp_lens, out_lens, device, decode) -> bytes:
+    """The block route over split rows: device calls of at most DEVICE_BATCH
+    blocks, each through `decode(rows, comp_lens, out_lens, device=device)`
+    (its own `h2d` and `decode` spans), its output copied back into this
+    thread's kept buffer and compacted.  A block not ok reroutes the whole
+    stream."""
+    pinned = hostbuf.pinned_for(device)
     decoded = hostbuf.take("api.decoded", (out_len,), torch.uint8).numpy()
     written = 0
-    for start in range(0, nb, DEVICE_BATCH):
+    for start in range(0, padded.shape[0], DEVICE_BATCH):
         rows, cl, ol = (a[start : start + DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
-        out, ok = decode_blocks_tape(rows, cl, ol, device=device)  # host-built tapes; spans inside
+        out, ok = decode(rows, cl, ol, device=device)
         profiling.count("decompress.device_calls")
         profiling.count("decompress.blocks", rows.shape[0])
         with profiling.span("snappy.d2h"):
@@ -256,13 +305,14 @@ def _decompress(data, device) -> bytes:
             profiling.count("decompress.reroutes")
             return _unsplittable(arr, ops, out_len, device)
         with profiling.span("snappy.compact"):
-            written += cpu.compact_into(host.numpy(), ol, decoded[written:])
+            written += _compact_into(host.numpy(), ol, decoded[written:])
     with profiling.span("snappy.join"):
         return decoded[:written].tobytes()
 
 
 def _decompress_k2(arr: np.ndarray, ops: np.ndarray, out_len: int, device) -> bytes:
-    """The block route without the native runtime: K2 parses each block."""
+    """The block route without the native runtime: the split in Python, then
+    K2 parses each block."""
     try:
         with profiling.span("snappy.split"):
             chunks, out_lens = framing.split_ops_stream(ops, out_len)
@@ -270,22 +320,4 @@ def _decompress_k2(arr: np.ndarray, ops: np.ndarray, out_len: int, device) -> by
         return _unsplittable(arr, ops, out_len, device)
     with profiling.span("snappy.split"):
         padded, comp_lens = framing.pad_chunks(chunks)
-    out_lens = np.asarray(out_lens, np.int32)
-    pieces = []
-    for start in range(0, padded.shape[0], DEVICE_BATCH):
-        rows, cl, ol = (a[start : start + DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
-        with profiling.span("snappy.h2d"):
-            args = [torch.from_numpy(a).to(device) for a in (rows, cl, ol)]
-        with profiling.span("snappy.decode"):
-            out, ok = decode_blocks(*args)
-        profiling.count("decompress.device_calls")
-        profiling.count("decompress.blocks", rows.shape[0])
-        with profiling.span("snappy.d2h"):
-            out, ok = out.cpu().numpy(), ok.cpu().numpy()
-        if not ok.all():  # a copy across the grid, or a malformed stream: K4 or the host decides
-            profiling.count("decompress.reroutes")
-            return _unsplittable(arr, ops, out_len, device)
-        with profiling.span("snappy.compact"):
-            pieces.extend(out[i, : ol[i]].tobytes() for i in range(out.shape[0]))
-    with profiling.span("snappy.join"):
-        return b"".join(pieces)
+    return _block_calls(arr, ops, out_len, padded, comp_lens, np.asarray(out_lens, np.int32), device, _decode_k2)

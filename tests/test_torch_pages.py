@@ -5,7 +5,9 @@ the benchmark's plain-torch decoder (`benchmark/reference.py`, which
 imports nothing of the program) since the JAX package rejects them, valid
 streams whose copies reach back across the 64 KiB grid (which the block
 route cannot decode alone and hands to the windowed route), their
-malformed mutations, and the route's counters."""
+malformed mutations, and the route's counters; on each block route: K5 on
+host tapes, K2 after the Python split, and K2 after the native split (the
+route of a CUDA device)."""
 
 import functools
 
@@ -18,6 +20,7 @@ from snappytpu import api as jax_api
 from snappytpu_torch import api, cpu, profiling
 from snappytpu_torch.format import constants as C
 from snappytpu_torch.format.varint import encode_varint
+from snappytpu_torch.kernels import decode_tape
 from snappytpu_torch.model.decode import CorruptError
 
 BS = C.MAX_BLOCK_SIZE
@@ -93,14 +96,23 @@ def counted(fn):
     return out, {k: v for k, v in profiling.counters().items() if k.startswith("decompress.")}
 
 
-@pytest.fixture(params=["tape", "K2"])
+@pytest.fixture(params=["tape", "K2", "native+K2"])
 def route(request, monkeypatch):
-    """The block route: K5 on host tapes (native runtime), or K2 without it."""
-    if request.param == "tape" and not cpu.available:
-        pytest.skip("the tape route needs the port's native runtime")
+    """The block route: K5 on host tapes (native runtime), K2 without the
+    native runtime, or the native scan and split, then K2 (a CUDA device's
+    route, forced here on the CPU device)."""
+    if request.param != "K2" and not cpu.available:
+        pytest.skip("the native scan and split need the port's native runtime")
     if request.param == "K2":
         monkeypatch.setattr(cpu, "available", False)
+    if request.param == "native+K2":
+        monkeypatch.setattr(api, "parses_on_card", lambda device: True)
     return request.param
+
+
+def k2_calls(route: str, calls: int) -> dict:
+    """The counter of the block-route calls K2 parsed, where `route` parses with K2."""
+    return {} if route == "tape" else {"decompress.k2_calls": calls}
 
 
 @pytest.mark.parametrize("profile", ["fast", "dense"])
@@ -110,6 +122,35 @@ def test_port_pages_equal_the_jax_package(size, profile):
     got, counts = counted(lambda: api.decompress(stream, device="cpu"))
     assert got == jax_api.decompress(stream) == page(size)
     assert counts == {"decompress.device_calls": 1, "decompress.blocks": size // BS}
+
+
+@pytest.mark.parametrize("profile", ["fast", "dense"])
+def test_a_page_on_every_block_route_equals_the_jax_package(profile, route):
+    stream = port_stream(1024 * KiB, profile)
+    got, counts = counted(lambda: api.decompress(stream, device="cpu"))
+    assert got == jax_api.decompress(stream) == page(1024 * KiB)
+    assert counts == {"decompress.device_calls": 1, "decompress.blocks": 16, **k2_calls(route, 1)}
+
+
+def test_a_block_whose_tape_overflows(route, monkeypatch):
+    """A last block of 24,000 one-byte literals needs more records than
+    TAPE_MAX: build_tapes says -9, and K5's route hands that block to
+    K2; the K2 routes parse it with the rest."""
+    tail = page(24_000, seed=13)
+    stream = (encode_varint(BS + len(tail)) + ops_of(port_stream(BS, "fast"))
+              + b"".join(literal(bytes([x])) for x in tail))
+    if route != "K2":  # build_tapes is the native runtime's
+        rows = np.zeros((1, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8)
+        rows[0, : 2 * len(tail)] = np.frombuffer(stream[-2 * len(tail):], np.uint8)
+        lens = np.array([2 * len(tail)], np.int32), np.array([len(tail)], np.int32)
+        assert decode_tape.build_tapes(rows, *lens)[1].tolist() == [-9]
+    fallbacks = []
+    real = decode_tape.decode_blocks_vm
+    monkeypatch.setattr(decode_tape, "decode_blocks_vm", lambda *a: fallbacks.append(a[0].shape[0]) or real(*a))
+    got, counts = counted(lambda: api.decompress(stream, device="cpu"))
+    assert got == reference_decode(stream) == page(BS) + tail
+    assert fallbacks == ([1] if route == "tape" else [])
+    assert counts == {"decompress.device_calls": 1, "decompress.blocks": 2, **k2_calls(route, 1)}
 
 
 @pytest.mark.parametrize("size", [64 * KiB, 256 * KiB + 5, 1024 * KiB])
@@ -134,7 +175,7 @@ def test_a_copy_across_the_grid_decodes_through_the_windowed_route(kind, offset,
     got, counts = counted(lambda: api.decompress(stream, device="cpu"))
     assert got == reference_decode(stream) == want
     assert counts == {"decompress.device_calls": 1, "decompress.blocks": 3, "decompress.reroutes": 1,
-                      "decompress.windowed_calls": 1}
+                      "decompress.windowed_calls": 1, **k2_calls(route, 1)}
 
 
 def test_a_copy_across_the_grid_in_a_later_device_call(monkeypatch):
@@ -202,5 +243,5 @@ def test_blocks_per_call_over_many_calls(monkeypatch, route):
     stream = port_stream(5 * BS - 100, "fast")
     got, counts = counted(lambda: api.decompress(stream, device="cpu"))
     assert got == page(5 * BS - 100)
-    assert counts == {"decompress.device_calls": 3, "decompress.blocks": 5}
+    assert counts == {"decompress.device_calls": 3, "decompress.blocks": 5, **k2_calls(route, 3)}
 

@@ -78,6 +78,20 @@ def test_decompress_steps_on_the_block_route(monkeypatch):
     assert _children(_one(events, "snappy.decompress")) == ["split", "split", *call, "join"]
 
 
+def test_decompress_steps_on_the_card_route(monkeypatch):
+    """The native scan and split, then K2 (a CUDA device's route, forced on
+    the CPU device): no `tape` step."""
+    if not cpu.available:
+        pytest.skip("the native scan and split need the port's native runtime")
+    monkeypatch.setattr(api, "DEVICE_BATCH", 2)
+    monkeypatch.setattr(api, "parses_on_card", lambda device: True)
+    stream = api.compress(DATA, "fast", device="cpu")
+    out, events = _profiled(lambda: api.decompress(stream, device="cpu"))
+    assert out == DATA
+    call = ["h2d", "decode", "d2h", "compact"]
+    assert _children(_one(events, "snappy.decompress")) == ["scan", "split", *call, *call, "join"]
+
+
 def test_windowed_and_host_decode_spans():
     """An unaligned stream goes through `windowed` with its own steps; a
     giant literal through `windowed`, refused, then `host_decode`."""
