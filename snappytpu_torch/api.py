@@ -27,6 +27,8 @@ taking the same decode routes:
 The block route's host arrays (rows, tapes, the decoded rows and stream)
 are the calling thread's reused buffers (hostbuf.py), pinned where they
 cross to a CUDA device, so a call's time does not follow the allocator's.
+The file codec (stream/filecodec.py) takes the same route window by
+window: split_blocks, then decode_rows into a window-sized buffer.
 
 There is no power-of-two batch bucketing (it bounded jit recompiles only);
 a device call takes at most 128 blocks.  On a CUDA device the encoder's call
@@ -240,16 +242,11 @@ def _decompress(data, device) -> bytes:
             offs, out_lens = cpu.scan_ops(ops, out_len)
     except cpu.NativeError:
         return _unsplittable(arr, ops, out_len, device)
-    nb, pinned = offs.size, hostbuf.pinned_for(device)
     try:
-        with profiling.span("snappy.split"):
-            padded, comp_lens = cpu.split_rows(ops, offs, C.MAX_COMPRESSED_BLOCK_SIZE, out=(
-                hostbuf.take("api.rows", (nb, C.MAX_COMPRESSED_BLOCK_SIZE), torch.uint8, pinned=pinned).numpy(),
-                hostbuf.take("api.row_lens", (nb,), torch.int32).numpy()))
+        padded, comp_lens = split_blocks(ops, offs, device=device)
     except cpu.NativeError:  # a row wider than a padded one: a valid stream of tiny ops, or a corrupt one
         return _unsplittable(arr, ops, out_len, device)
-    decode = _decode_k2 if parses_on_card(device) else decode_blocks_tape  # K5's tapes built on the host, in its spans
-    return _block_calls(arr, ops, out_len, padded, comp_lens, out_lens.astype(np.int32), device, decode)
+    return _block_route(arr, ops, out_len, padded, comp_lens, out_lens.astype(np.int32), device)
 
 
 def parses_on_card(device) -> bool:
@@ -283,29 +280,47 @@ def _compact_into(rows: np.ndarray, lens: np.ndarray, out: np.ndarray) -> int:
     return written
 
 
-def _block_calls(arr, ops, out_len, padded, comp_lens, out_lens, device, decode) -> bytes:
-    """The block route over split rows: device calls of at most DEVICE_BATCH
-    blocks, each through `decode(rows, comp_lens, out_lens, device=device)`
-    (its own `h2d` and `decode` spans), its output copied back into this
-    thread's kept buffer and compacted.  A block not ok reroutes the whole
-    stream."""
-    pinned = hostbuf.pinned_for(device)
-    decoded = hostbuf.take("api.decoded", (out_len,), torch.uint8).numpy()
+def split_blocks(ops: np.ndarray, offs: np.ndarray, *, device):
+    """`ops` split natively at the block offsets `offs` into this thread's kept
+    rows: (rows, comp_lens).  NativeError on a block wider than a row."""
+    with profiling.span("snappy.split"):
+        return cpu.split_rows(ops, offs, C.MAX_COMPRESSED_BLOCK_SIZE, out=(
+            hostbuf.take("api.rows", (offs.size, C.MAX_COMPRESSED_BLOCK_SIZE), torch.uint8,
+                         pinned=hostbuf.pinned_for(device)).numpy(),
+            hostbuf.take("api.row_lens", (offs.size,), torch.int32).numpy()))
+
+
+def decode_rows(padded, comp_lens, out_lens, out: np.ndarray, *, device) -> int | None:
+    """The block route, compacted into the front of `out`: calls of at most
+    DEVICE_BATCH blocks, through K2 where parses_on_card(device) or without
+    the native runtime (K5's tapes need it), else K5; the bytes written, or
+    None at the first call with a block not ok (a copy reaching back across
+    the 64 KiB grid, or a malformed block)."""
+    decode = _decode_k2 if parses_on_card(device) or not cpu.available else decode_blocks_tape
     written = 0
     for start in range(0, padded.shape[0], DEVICE_BATCH):
         rows, cl, ol = (a[start : start + DEVICE_BATCH] for a in (padded, comp_lens, out_lens))
-        out, ok = decode(rows, cl, ol, device=device)
+        out_d, ok = decode(rows, cl, ol, device=device)  # its own `h2d` and `decode` spans
         profiling.count("decompress.device_calls")
         profiling.count("decompress.blocks", rows.shape[0])
         with profiling.span("snappy.d2h"):
-            host = hostbuf.take("api.d2h", tuple(out.shape), torch.uint8, pinned=pinned)
-            host.copy_(out)
+            host = hostbuf.take("api.d2h", tuple(out_d.shape), torch.uint8, pinned=hostbuf.pinned_for(device))
+            host.copy_(out_d)
             ok = ok.cpu().numpy()
-        if not ok.all():  # a copy across the grid, or a malformed stream: K4 or the host decides
-            profiling.count("decompress.reroutes")
-            return _unsplittable(arr, ops, out_len, device)
+        if not ok.all():
+            return None
         with profiling.span("snappy.compact"):
-            written += _compact_into(host.numpy(), ol, decoded[written:])
+            written += _compact_into(host.numpy(), ol, out[written:])
+    return written
+
+
+def _block_route(arr, ops, out_len, padded, comp_lens, out_lens, device) -> bytes:
+    """decode_rows into a kept buffer; a block not ok reroutes the stream."""
+    decoded = hostbuf.take("api.decoded", (out_len,), torch.uint8).numpy()
+    written = decode_rows(padded, comp_lens, out_lens, decoded, device=device)
+    if written is None:
+        profiling.count("decompress.reroutes")
+        return _unsplittable(arr, ops, out_len, device)
     with profiling.span("snappy.join"):
         return decoded[:written].tobytes()
 
@@ -320,4 +335,4 @@ def _decompress_k2(arr: np.ndarray, ops: np.ndarray, out_len: int, device) -> by
         return _unsplittable(arr, ops, out_len, device)
     with profiling.span("snappy.split"):
         padded, comp_lens = framing.pad_chunks(chunks)
-    return _block_calls(arr, ops, out_len, padded, comp_lens, np.asarray(out_lens, np.int32), device, _decode_k2)
+    return _block_route(arr, ops, out_len, padded, comp_lens, np.asarray(out_lens, np.int32), device)

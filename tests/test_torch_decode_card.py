@@ -5,7 +5,8 @@ On the CPU: the route rule, `api.parses_on_card`, by device.  On a card
 stream whose last block overflows the tape's record cap decode on
 the card with K2 parsing every block-route call (`decompress.k2_calls` ==
 `decompress.device_calls`), no tape decoder launched, and the same bytes as
-on the CPU device, where the tape route runs.  Run them there with
+on the CPU device, where the tape route runs; the file codec's windows
+take that route too.  Run them there with
 `python -m pytest --noconftest -m cuda tests/test_torch_decode_card.py -q`
 (this file imports neither JAX nor the JAX package)."""
 
@@ -19,7 +20,7 @@ from benchmark import datagen
 from snappytpu_torch import api, cpu, profiling
 from snappytpu_torch.format import constants as C
 from snappytpu_torch.format.varint import encode_varint
-from snappytpu_torch.stream import framing
+from snappytpu_torch.stream import filecodec, framing
 
 BS = C.MAX_BLOCK_SIZE
 
@@ -78,4 +79,20 @@ def test_k2_parses_every_block_route_call_on_the_card(card, name):
     assert got == want == data
     calls = -(-len(data) // (BS * api.DEVICE_BATCH))
     assert counts["decompress.k2_calls"] == counts["decompress.device_calls"] == calls
+    assert "decode_tape.launches" not in counts and "decompress.reroutes" not in counts
+
+
+@pytest.mark.cuda
+def test_decompress_file_parses_every_window_with_k2_on_the_card(card, tmp_path):
+    """The 10 MB sample's 153 blocks in windows of 64: three block-route
+    calls, each parsed by K2, and the file holds api.decompress's bytes."""
+    data, stream = STREAMS["sample_10MB"](card)
+    comp, out = tmp_path / "c.snappy", tmp_path / "out.raw"
+    comp.write_bytes(stream)
+    want = api.decompress(stream, device=card)
+    profiling.reset_counters()
+    assert filecodec.decompress_file(comp, out, window_blocks=64, device=card) == len(data)
+    counts = profiling.counters()
+    assert out.read_bytes() == want == data
+    assert counts["decompress.k2_calls"] == counts["decompress.device_calls"] == 3
     assert "decode_tape.launches" not in counts and "decompress.reroutes" not in counts

@@ -2,7 +2,10 @@
 package's, on the legs of tests/test_filecodec.py: byte-equal compressed
 files, multi-window round trips, empty and corrupt files, the
 oversized-compressed-block fallback through the windowed decoder, and a
-valid copy across the 64 KiB grid, which the port decodes."""
+valid copy across the 64 KiB grid, which the port decodes.  The decoding
+legs run on both of api.decompress's block routes, which the file codec
+takes window by window: K5's host tapes (the CPU device's) and K2 after
+the native split (a CUDA device's, forced here on the CPU device)."""
 
 import numpy as np
 import pytest
@@ -11,7 +14,9 @@ from snappytpu import api as jax_api
 from snappytpu.bench import corpus
 from snappytpu.format.varint import encode_varint
 from snappytpu.stream import filecodec as jax_filecodec
-from snappytpu_torch import api
+from snappytpu_torch import api, cpu, hostbuf, profiling
+from snappytpu_torch.format import constants as C
+from snappytpu_torch.kernels import decode_tape
 from snappytpu_torch.model.decode import CorruptError  # the port's own: the file codec raises it
 from snappytpu_torch.stream import filecodec, framing
 
@@ -31,7 +36,18 @@ def test_compress_file_byte_equal(tmp_path, nbytes):
     assert n == len(got)
 
 
-def test_multiwindow_round_trip(tmp_path):
+@pytest.fixture(params=["tape", "native+K2"])
+def route(request, monkeypatch):
+    """The block route the file codec's windows take: K5 on host tapes, or
+    K2 after the native split (a CUDA device's route, forced here)."""
+    if not cpu.available:
+        pytest.skip("the file codec's window route needs the port's native runtime")
+    if request.param == "native+K2":
+        monkeypatch.setattr(api, "parses_on_card", lambda device: True)
+    return request.param
+
+
+def test_multiwindow_round_trip(tmp_path, route):
     data = corpus.mixed(7 * 65536 + 123, seed=32)
     src, comp, out = tmp_path / "in.raw", tmp_path / "c.snappy", tmp_path / "out.raw"
     src.write_bytes(data)
@@ -41,7 +57,7 @@ def test_multiwindow_round_trip(tmp_path):
     assert out.read_bytes() == data
 
 
-def test_empty_and_corrupt_files(tmp_path):
+def test_empty_and_corrupt_files(tmp_path, route):
     comp, out = tmp_path / "c.snappy", tmp_path / "out.raw"
     comp.write_bytes(encode_varint(0))
     assert filecodec.decompress_file(comp, out, device="cpu") == 0
@@ -89,9 +105,9 @@ def test_oversized_compressed_block_goes_to_the_windowed_decoder(tmp_path, monke
 
 
 @pytest.mark.parametrize("window_blocks", [1, 2])
-def test_a_copy_across_the_grid_decodes_as_in_memory(tmp_path, window_blocks):
+def test_a_copy_across_the_grid_decodes_as_in_memory(tmp_path, window_blocks, route):
     """A valid stream whose copy opens block 1 and reaches 500 bytes back
-    into block 0, which raw Snappy allows: the tape decoder flags block 1
+    into block 0, which raw Snappy allows: the block route flags block 1
     not ok, and decompress_file hands the stream to api.decompress, which
     decodes it through the windowed route; the JAX package rejects it."""
     head = corpus.mixed(65536, seed=34)
@@ -110,3 +126,51 @@ def test_a_copy_across_the_grid_decodes_as_in_memory(tmp_path, window_blocks):
         jax_api.decompress(stream)
     assert filecodec.decompress_file(comp, out, window_blocks=window_blocks, device="cpu") == len(want)
     assert out.read_bytes() == want
+
+
+def compressed_file(tmp_path, nbytes: int, seed: int):
+    """(data, path of its fast stream)."""
+    data = corpus.mixed(nbytes, seed=seed)
+    comp = tmp_path / "c.snappy"
+    comp.write_bytes(api.compress(data, "fast", device="cpu"))
+    return data, comp
+
+
+def test_a_multiwindow_file_counts_one_device_call_a_batch(tmp_path, route, monkeypatch):
+    """8 blocks in windows of 3, 3 and 2, device calls of at most 2 blocks:
+    5 calls, the same counters api.decompress keeps, K2's on its route."""
+    data, comp = compressed_file(tmp_path, 7 * 65536 + 123, seed=36)
+    monkeypatch.setattr(api, "DEVICE_BATCH", 2)
+    profiling.reset_counters()
+    try:
+        assert filecodec.decompress_file(comp, tmp_path / "out.raw", window_blocks=3, device="cpu") == len(data)
+        counts = {k: v for k, v in profiling.counters().items() if k.startswith("decompress.")}
+    finally:  # the registry is the process's: later tests in this worker read it
+        profiling.reset_counters()
+    assert (tmp_path / "out.raw").read_bytes() == data
+    k2 = {} if route == "tape" else {"decompress.k2_calls": 5}
+    assert counts == {"decompress.device_calls": 5, "decompress.blocks": 8, **k2}
+
+
+# each kept host buffer's bytes per block of a window: the padded rows and
+# their lengths, K5's tapes, the decoded rows and the window's output
+PER_BLOCK = {"api.rows": C.MAX_COMPRESSED_BLOCK_SIZE, "api.row_lens": 4, "api.d2h": C.MAX_BLOCK_SIZE,
+             "filecodec.out": C.MAX_BLOCK_SIZE, "decode_tape.build": 8 * decode_tape.TAPE_MAX,
+             "decode_tape.tapes": 8 * decode_tape.TAPE_MAX, "decode_tape.nrecs": 4}
+
+
+@pytest.mark.parametrize("window_blocks", [1, 2])
+def test_decompress_file_keeps_window_sized_buffers(tmp_path, route, window_blocks, monkeypatch):
+    """Every host buffer decompress_file takes holds at most a window's
+    blocks (rows at most window_blocks x 73,728 bytes, output at most
+    window_blocks x 65,536), whatever the stream's length: none is the
+    API's buffer for a whole decoded stream."""
+    data, comp = compressed_file(tmp_path, 7 * 65536 + 123, seed=37)
+    taken, take = [], hostbuf.take
+    monkeypatch.setattr(hostbuf, "take", lambda name, shape, dtype, **kw: taken.append(
+        (name, int(np.prod(shape)) * dtype.itemsize)) or take(name, shape, dtype, **kw))
+    assert filecodec.decompress_file(comp, tmp_path / "out.raw", window_blocks=window_blocks, device="cpu") == len(data)
+    assert (tmp_path / "out.raw").read_bytes() == data
+    assert {name for name, _ in taken} >= {"api.rows", "api.d2h", "filecodec.out"}
+    for name, nbytes in taken:
+        assert name in PER_BLOCK and nbytes <= window_blocks * PER_BLOCK[name], (name, nbytes)
