@@ -15,10 +15,14 @@ set to 0 just before it and read just after:
         replay on cold inputs
   4     K2 (the pipelined block decoder) against its plain version
   5     the main path: a 32 MB mixed corpus (512 blocks of 64 KiB) encoded on
-        the card with both profiles in batches of 128 blocks (torch ops + K1),
-        decoded on the card by K2, compared block by block on the device;
-        then K1 on the sections and lengths the encoder handed it in the
-        first batch of each profile, checked and timed as in phase 3
+        the card with both profiles in batches of 128 blocks (torch ops, K7
+        and K1), decoded on the card by K2, compared block by block on the
+        device, K7 run once per encoder call (launched or in a graph
+        replay); then K1 on the sections and lengths the encoder handed it
+        in the first batch of each profile, checked and timed as in phase 3;
+        then K7 (tier B of the match finder) on the main path's first 128
+        and 25 blocks in both profiles, equal to the torch chain it replaced
+        on the same card tensors, both timed
   6     the user API with device="cuda"
   7     K3 (K4a's parse, then the byte-source resolver) against its plain
         version and K2; its path is the A/B twin of phase 5's decode (the
@@ -39,8 +43,9 @@ set to 0 just before it and read just after:
         first with mutated chunks (flags and every row); K4a, K4b and the
         whole call timed
   10    the host-resident path: the 32 MB corpus through compress_file and
-        decompress_file (the tape route, K5) on the card, the CLI once each
-        way, both host routes (tape, K2) timed part by part, K6 against the
+        decompress_file (the API's block route, K2) on the card, the CLI once
+        each way, both host routes (tape, K5; block, K2) timed part by part
+        (path host_routes), K6 against the
         plain version on the stream's tapes (no block takes the walk), K5
         and K6 timed in turns on the stream's host rows, and K6's path, the
         A/B twin of the tape route
@@ -141,10 +146,11 @@ SWEEP_REAL_MB = 32  # the mesh sweep's Silesia-stand-in point in phase 15
 # rounds a block; K1's time by events around wrapper calls, the
 # copy floor, its main-path times and its times at the emit's other section
 # counts (phase 16); T1's 16 SMOKE probes run alone, one after another; K1's
-# runs inside the encoder's graph replays on its path
+# and K7's runs inside the encoder's graph replays on their path; K7's times,
+# its chain's and its bounds per profile and call size
 K_EXTRAS = ("cuda_kernels", "sources", "kernel_launches", "kernels_per_call", "parse_ms", "move_ms", "resolve_ms",
             "rounds", "events_ms", "copy_floor_ms", "main_path_ms", "main_path_bound_ms", "sections_ms",
-            "sections_bound_ms", "lone_ms", "graph_runs")
+            "sections_bound_ms", "lone_ms", "graph_runs", "shapes_ms", "shapes_plain_ms", "shapes_bound_ms")
 
 
 def log(msg: str) -> None:
@@ -266,11 +272,14 @@ def block_bytes(comp_lens, n: int) -> int:
 
 # the launch counters of profiling's registry, under the keys this script prints:
 # K3's and K4's calls, and the launches of their CUDA kernels (K4a's parse is
-# both's first), apart; and K1's runs inside the encoder's graph replays, which
-# launch nothing of their own (the K1 launches each graph recorded, per replay)
+# both's first), apart; and K1's and K7's runs inside the encoder's graph
+# replays, which launch nothing of their own (the launches each graph
+# recorded, per replay; profiling.count_launch)
 COUNT_KEYS = {
     "concat": "concat.launches",
     "concat_graph_runs": "concat.graph_runs",
+    "tier_b": "tier_b.launches",
+    "tier_b_graph_runs": "tier_b.graph_runs",
     "decode_block": "decode_vm4.launches",
     "decode_block_vm2": "decode_vm2.launches",
     "decode_stream": "decode_vm2.stream_launches",
@@ -294,6 +303,19 @@ def read_counts() -> dict:
 def k1_runs(launches: dict) -> int:
     """K1's runs in `read_counts()`: its launches and its runs inside graph replays."""
     return launches["concat"] + launches["concat_graph_runs"]
+
+
+def k7_runs(launches: dict) -> int:
+    """K7's runs in `read_counts()`, as `k1_runs` counts K1's."""
+    return launches["tier_b"] + launches["tier_b_graph_runs"]
+
+
+def tier_b_bytes(B: int) -> int:
+    """K7's bytes: the blocks and their lengths read, a length and a
+    distance (int32 each) written a position."""
+    from snappytpu_torch.format import constants as C
+
+    return B * (C.MAX_BLOCK_SIZE + 4) + B * C.MAX_BLOCK_SIZE * 8
 
 
 def golden_streams():
@@ -1280,7 +1302,7 @@ def main() -> int:
     from snappytpu_torch.bench import corpus
     from snappytpu_torch.format import constants as C
     from snappytpu_torch.format.varint import encode_varint
-    from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4, encode_v2
+    from snappytpu_torch.kernels import concat, decode_tape, decode_vm2, decode_vm4, encode_v2, tier_b
     from snappytpu_torch.kernels.decode_vm import decode_blocks_vm
     from snappytpu_torch.kernels.encode_v2 import encode_blocks_v2
     from snappytpu_torch.stream import filecodec, framing
@@ -1450,9 +1472,11 @@ def main() -> int:
     encode_v2.concat_rows = concat_capturing
     profiling.reset_counters()
     results, encs = {}, {}
+    card_calls = 0  # encoder calls on the card: K7 runs once in each
     for profile in ("fast", "dense"):
         dense = profile == "dense"
         encode_blocks_v2(bl[0], ll[0], dense)  # warm-up (allocator, sort workspaces)
+        card_calls += 1 + len(bl)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1506,6 +1530,10 @@ def main() -> int:
     log(f"[5 main] summary {json.dumps(results)}")
     if min(k1_runs(paths["main"]), paths["main"]["decode_block"]) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {paths['main']}")
+    if k7_runs(paths["main"]) != card_calls:
+        raise AssertionError(f"K7 ran {k7_runs(paths['main'])} times in {card_calls} encoder calls on the card")
+    log(f"[5 main] K7 ran once in each of the {card_calls} encoder calls on the card: {paths['main']['tier_b']} "
+        f"launched, {paths['main']['tier_b_graph_runs']} in graph replays")
     # K1 on the main path's own inputs, against its plain version, timed as in phase 3
     main_ms, main_bound = {}, {}
     for profile, (pieces, lens, out_cap) in k1_inputs.items():
@@ -1524,6 +1552,36 @@ def main() -> int:
             f"(K1 at {main_bound[profile] / main_ms[profile] * 100:.1f} %)")
     del k1_inputs, copies
     kernels["concat"].update(main_path_ms=main_ms, main_path_bound_ms=main_bound)
+    # K7 on the main path's own blocks, against the torch chain it replaced on the same card tensors
+    k7 = dict(err=0, shapes_ms={}, shapes_plain_ms={}, shapes_bound_ms={})
+    for profile in ("dense", "fast"):
+        stride, key_ids, b_ranks = encode_v2._tier_b_params(profile == "dense")
+        for B in (BATCH, 25):
+            blocks, n = bl[0][:B], ll[0][:B]
+
+            def chain():
+                return encode_v2._tier_b_chain(encode_v2._match_words(blocks, n), stride, key_ids, b_ranks)
+
+            got, want = tier_b.tier_b(blocks, n, stride, key_ids, b_ranks), chain()
+            for g, w, what in zip(got, want, ("length", "distance")):
+                if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                    bad = int((g != w).sum()) if g.shape == w.shape else -1
+                    raise AssertionError(f"K7 {profile} B = {B}: the {what} differs from the chain's at {bad} positions")
+            copies = [blocks] + [blocks.clone() for _ in range(4)]
+            shape = f"{profile}/{B}"
+            k7["shapes_ms"][shape] = graph_ms(lambda i: tier_b.tier_b(copies[i], n, stride, key_ids, b_ranks),
+                                              len(copies))
+            k7["shapes_plain_ms"][shape] = event_ms(chain, 3)
+            k7["shapes_bound_ms"][shape] = bound_ms(tier_b_bytes(B))
+            log(f"[5 K7] {profile} B = {B}: the main path's blocks (lengths {int(n.min())}-{int(n.max())}): length "
+                f"and distance equal the torch chain's; kernel {k7['shapes_ms'][shape]:.4f} ms by CUDA graph "
+                f"replay (cold inputs), the chain (its key words, sorts and gathers) {k7['shapes_plain_ms'][shape]:.3f}"
+                f" ms by events; bound {k7['shapes_bound_ms'][shape]:.5f} ms (K7 at "
+                f"{k7['shapes_bound_ms'][shape] / k7['shapes_ms'][shape] * 100:.2f} %)")
+    del copies
+    first = f"dense/{BATCH}"
+    kernels["tier_b"] = dict(k7, ms=k7["shapes_ms"][first], plain_ms=k7["shapes_plain_ms"][first],
+                             bound_ms=k7["shapes_bound_ms"][first])
 
     # ---- 6. the user API on the card ----
     small = corpus.mixed(3 << 20, seed=5)
@@ -1777,6 +1835,8 @@ def main() -> int:
         torch.cuda.synchronize()
         dfile_s = time.perf_counter() - t0
         paths["host"] = read_counts()
+        if paths["host"]["decode_block"] <= 0 or paths["host"]["decode_tape"] != 0:
+            raise AssertionError(f"decompress_file on the card did not take the block route (K2): {paths['host']}")
         with open(out_f, "rb") as f:
             if f.read() != raw:
                 raise AssertionError("decompress_file did not give back the input")
@@ -1790,9 +1850,11 @@ def main() -> int:
                 raise AssertionError("the CLI round trip differs from its input")
     mb = len(raw) / 1e6
     log(f"[10 host] compress_file {mb / cfile_s:.1f} MB/s, bytes equal api.compress ({len(fstream)} bytes); "
-        f"decompress_file {mb / dfile_s:.1f} MB/s through the tape route ({paths['host']['decode_tape']} K5 "
-        f"launches, {paths['host']['decode_block']} K2 fallback launches), output equals the input; CLI -c/-d round trip ok")
+        f"decompress_file {mb / dfile_s:.1f} MB/s through the API's block route ({paths['host']['decode_block']} "
+        f"K2 launches, no K5), output equals the input; CLI -c/-d round trip ok")
+    profiling.reset_counters()
     routes = host_routes(fstream, raw, dev)
+    paths["host_routes"] = read_counts()
     for name, parts in routes.items():
         total = sum(parts.values())
         log(f"[10 host] {name} route: {mb / total:.1f} MB/s ({total * 1e3:.1f} ms; "
@@ -1872,11 +1934,14 @@ def main() -> int:
     # ---- 13. report ----
     info = {  # name -> (source, TPU kernel it replaces, the path it runs on)
         "concat": ("snappytpu_torch/csrc/concat.cu", "snappytpu/kernels/concat.py:64", "main"),
+        "tier_b": ("snappytpu_torch/csrc/tier_b.cu", "none: snappytpu/kernels/encode_v2.py:289, lax.sort array code",
+                   "main"),
         "decode_block": ("snappytpu_torch/csrc/decode_block.cu", "snappytpu/kernels/decode_vm4.py:259", "main"),
         "decode_block_vm2": ("snappytpu_torch/csrc/decode_block.cu", "snappytpu/kernels/decode_vm2.py:378",
                              "main_ab_k3"),
         "decode_stream": ("snappytpu_torch/csrc/decode_stream.cu", "snappytpu/kernels/decode_vm2.py:492", "windowed"),
-        "decode_tape": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:109", "host"),
+        "decode_tape": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:109",
+                        "host_routes"),
         "decode_tape_k": ("snappytpu_torch/csrc/decode_tape.cu", "snappytpu/kernels/decode_tape.py:214",
                           "host_ab_k6"),
         "dec_anatomy": ("snappytpu_torch/csrc/dec_anatomy.cu", "tools/dec_anatomy.py:128", "profiling"),
@@ -1904,6 +1969,7 @@ def main() -> int:
     kernels["decode_tape_k"].update(cuda_kernels=["run_tape_k_kernel"],
                                     sources=["snappytpu_torch/csrc/decode_resolve.cuh"])
     kernels["concat"].update(graph_runs=paths[info["concat"][2]]["concat_graph_runs"])
+    kernels["tier_b"].update(graph_runs=paths[info["tier_b"][2]]["tier_b_graph_runs"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": info[name][0], "replaces": info[name][1],
          "launches": paths[info[name][2]][name],

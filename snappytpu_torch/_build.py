@@ -47,6 +47,8 @@ _SIGNATURES = {
     "snappy_tape_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (table, blocks, smem, in, out, clk, n, stream) -> cudaError_t
     "snappy_probe_scalar": (_P, _I, _I, _P, _P, _P, _I, _P),
+    # (blocks, lens, scratch, out_len, out_dist, B, stride, nkeys, key_ids, rank_mask, stream) -> cudaError_t
+    "snappy_tier_b_matches": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint64, _I, _P),
 }
 
 

@@ -53,7 +53,8 @@ route handed to the windowed route), `decompress.windowed_calls` (K4
 calls) and `decompress.host_fallbacks`; and the encoder's
 `encode.graph_replays`, `encode.graph_captures`, `encode.eager_calls` and
 `encode.graph_fallbacks` (one of the first three per device call), and
-`concat.graph_runs`, K1's runs inside the replays.
+`concat.graph_runs` and `tier_b.graph_runs`, K1's and K7's runs inside
+the replays.
 """
 
 from __future__ import annotations

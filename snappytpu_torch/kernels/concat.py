@@ -17,8 +17,7 @@ import ctypes
 
 import torch
 
-from ..profiling import count  # concat.launches: host launches by concat_rows (the CUDA route only); K1's
-# runs inside a replayed encoder graph launch nothing here and count as concat.graph_runs (encode_v2)
+from ..profiling import count_launch  # concat.launches / .recorded / .graph_runs (the CUDA route only)
 
 
 def concat_rows_ref(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch.Tensor:
@@ -59,7 +58,7 @@ def _launch(pieces: torch.Tensor, lens: torch.Tensor, out_cap: int) -> torch.Ten
                 B, S, CAP, out_cap, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
             )
         check(rc, "concat_rows")
-        count("concat.launches")
+        count_launch("concat")
     return out
 
 

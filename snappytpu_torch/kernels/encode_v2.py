@@ -13,8 +13,8 @@ unchanged; this docstring only records how the port differs.
     keep position order (load-bearing for tier A's nearest-occurrence
     property).  `_lex_order` reproduces it with stable `torch.sort` passes
     from the last key to the first, two u32 keys packed into one int64 per
-    pass as ((hi - 2**31) << 32) | lo, which keeps unsigned order: tier B
-    takes 8 passes for `dense` (16 keys) and 3 for `fast` (6 keys).
+    pass as ((hi - 2**31) << 32) | lo, which keeps unsigned order: tier B's
+    CPU route takes 8 passes for `dense` (16 keys) and 3 for `fast` (6 keys).
   * The sort-back of the match tiers is a permutation inverse; the JAX
     encoder does it as a sort because scatters are slow on the TPU.  Here
     it is one scatter of the slot indices and two gathers.
@@ -23,7 +23,12 @@ unchanged; this docstring only records how the port differs.
     are assembled by the hand-written concat kernel (kernels/concat.py).
 
 Every tensor stays on the device of the input blocks.  The encoder's own
-array code is plain PyTorch; only the concat is a kernel.
+array code is plain PyTorch, but for two hand-written kernels: the concat
+(K1) and, on a CUDA tensor, tier B of the match finder (K7,
+kernels/tier_b.py: the order, the neighbour LCPs and the best match of a
+block in one thread block, in place of `_tier_b`'s sorts and gathers, which
+stay the CPU route).  The carried key words are built where a stage first
+reads them, so on a card only tier A's are.
 
 The served entry, `encode_blocks_v2`, runs the unchanged chain
 `encode_block_core` as one CUDA graph per (device, B, profile): the chain is
@@ -42,9 +47,9 @@ inside someone else's capture run the chain eagerly.  Nothing else chooses
 between the paths.  Counters (profiling's registry): `encode.graph_replays`,
 `encode.graph_captures`, `encode.eager_calls` (one of the three per call),
 `encode.graph_fallbacks` (a capture that raised: its key runs eagerly from
-then on, with a warning) and `concat.graph_runs` (K1's runs inside the
-replays).  `encode_block_core` and the stages stay eager for the tools that
-time them.
+then on, with a warning), `concat.graph_runs` and `tier_b.graph_runs` (K1's
+and K7's runs inside the replays).  `encode_block_core` and the stages stay
+eager for the tools that time them.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from ..format import constants as C
 from ..profiling import count, counters
 
 from .concat import concat_rows
+from .tier_b import tier_b as tier_b_kernel
 
 BS = C.MAX_BLOCK_SIZE
 PAD_OUT = C.MAX_COMPRESSED_BLOCK_SIZE
@@ -195,23 +201,43 @@ def _lex_order(keys):
     return perm
 
 
+class _KeyWords:
+    """The KW carried key words at every position, kws[j] starting 4j bytes
+    later, each built at its first read and kept: K7 reads tier B's from the
+    bytes, so on a card only tier A's are built.  Indexing and slicing as a
+    tuple's."""
+
+    def __init__(self, w: torch.Tensor):
+        self._built = {0: w}
+
+    def __len__(self):
+        return KW
+
+    def __getitem__(self, j):
+        if isinstance(j, slice):
+            return tuple(self[i] for i in range(*j.indices(KW)))
+        if j not in self._built:
+            self._built[j] = _shift_words(self._built[0], 4 * j)
+        return self._built[j]
+
+
 class _MatchWords(NamedTuple):
     """What the match tiers share: the lengths, the positions, the 16
-    carried key words at every position (kws[j] starts 4j bytes later) and
-    the first word with the tail positions forced to the top."""
+    carried key words at every position (kws[j] starts 4j bytes later), the
+    first word with the tail positions forced to the top, and the blocks."""
 
     n: torch.Tensor
     pos: torch.Tensor
-    kws: tuple
+    kws: _KeyWords
     w0p: torch.Tensor
+    blocks: torch.Tensor
 
 
 def _match_words(blocks_u8: torch.Tensor, n: torch.Tensor) -> _MatchWords:
     pos = _pos(blocks_u8.shape[0], BS, blocks_u8.device)
-    w = _words(blocks_u8)
-    kws = tuple(_shift_words(w, 4 * j) if j else w for j in range(KW))
+    kws = _KeyWords(_words(blocks_u8))
     tail = pos > (n - G)[:, None]
-    return _MatchWords(n, pos, kws, torch.where(tail, 0xFFFFFFFF, kws[0]))
+    return _MatchWords(n, pos, kws, torch.where(tail, 0xFFFFFFFF, kws[0]), blocks_u8)
 
 
 def _sort_back(order, blen, bcand, pos_sub, n):
@@ -238,21 +264,36 @@ def _tier_a(mw: _MatchWords, dense: bool, a_ranks=None, a_words: int = 4):
     return _sort_back(orderA, lenA, candA, mw.pos, mw.n)
 
 
-def _tier_b(mw: _MatchWords, dense: bool, b_ranks=None, dense_keys=None):
-    """Tier B: suffix adjacency over the sorted key words; fast samples
-    every 4th position."""
-    B = mw.pos.shape[0]
-    stride = 1 if dense else 4
-    sub = (lambda x: x) if stride == 1 else (lambda x: x[:, ::stride])
+def _tier_b_params(dense: bool, b_ranks=None, dense_keys=None):
+    """Tier B's (stride, sort-key words, neighbour ranks) for a profile and
+    its knobs: dense sorts every position by `dense_keys` (default all 16
+    words), fast every 4th by 6 of them."""
     if dense:
         key_ids = tuple(range(KW)) if dense_keys is None else tuple(dense_keys)
     else:
         key_ids = (0, 1, 4, 8, 12, 15)
+    return 1 if dense else 4, key_ids, NEIGHBORS if b_ranks is None else tuple(b_ranks)
+
+
+def _tier_b(mw: _MatchWords, dense: bool, b_ranks=None, dense_keys=None):
+    """Tier B: suffix adjacency over the sorted key words; fast samples
+    every 4th position.  On a CUDA tensor K7 computes it (kernels/tier_b.py);
+    elsewhere the torch chain does."""
+    stride, key_ids, b_ranks = _tier_b_params(dense, b_ranks, dense_keys)
+    if mw.blocks.device.type == "cuda":
+        return tier_b_kernel(mw.blocks, mw.n, stride, key_ids, b_ranks)
+    return _tier_b_chain(mw, stride, key_ids, b_ranks)
+
+
+def _tier_b_chain(mw: _MatchWords, stride: int, key_ids, b_ranks):
+    """Tier B as torch ops on any device: the CPU route, and what K7 is
+    held to on a card."""
+    B = mw.pos.shape[0]
+    sub = (lambda x: x) if stride == 1 else (lambda x: x[:, ::stride])
     kw_eff = (mw.w0p,) + mw.kws[1:]
     orderB = _lex_order([sub(kw_eff[j]) for j in key_ids])
     bpos = (orderB * stride).to(_I32)
     bks = tuple(torch.gather(sub(kw_eff[j]), 1, orderB) for j in range(KW))
-    b_ranks = NEIGHBORS if b_ranks is None else tuple(b_ranks)
     lenB, candB = _tier_best(bpos, bks, pred_ranks=b_ranks, succ_ranks=b_ranks)
     mlenB, distB = _sort_back(orderB, lenB, candB, sub(mw.pos), mw.n)
     if stride > 1:
@@ -750,6 +791,11 @@ def _record(blocks, lens, dense, rows, totals) -> None:
     totals.copy_(got_totals)
 
 
+# The hand kernels a capture records: each replay counts their recorded
+# launches as `<kernel>.graph_runs` (profiling.count_launch).
+_HAND_KERNELS = ("concat", "tier_b")
+
+
 class _CudaGraphs:
     """GraphCache's capture on CUDA: `encode_block_core` captured on the
     device's capture stream into its one graph memory pool, from the
@@ -763,8 +809,8 @@ class _CudaGraphs:
     stream than the device's last first waits for that stream) and each
     replay's outputs are cloned before any other replay can start: a later
     replay may overwrite the static inputs and outputs, never a caller's
-    clone.  K1's launches recorded in a graph are counted as
-    `concat.graph_runs` at each of its replays."""
+    clone.  The hand kernels' launches recorded in a graph are counted at
+    each of its replays (`_HAND_KERNELS`)."""
 
     def __init__(self):
         self.devices: dict = {}  # device index -> _Device
@@ -791,14 +837,16 @@ class _CudaGraphs:
         d = self.devices[dev]
         blocks, lens, rows, totals = d.blocks[:B], d.lens[:B], d.rows[:B], d.totals[:B]
         graph = torch.cuda.CUDAGraph()
-        k1_before = counters().get("concat.launches", 0)
+        before = counters()
         with torch.cuda.device(dev), torch.cuda.stream(d.stream):
             graph.capture_begin(pool=d.pool, capture_error_mode="thread_local")
             try:
                 _record(blocks, lens, dense, rows, totals)
             finally:
                 graph.capture_end()
-        k1 = counters().get("concat.launches", 0) - k1_before
+        after = counters()
+        runs = [(f"{k}.graph_runs", after.get(f"{k}.recorded", 0) - before.get(f"{k}.recorded", 0))
+                for k in _HAND_KERNELS]
 
         def replay(blocks_u8, lens_in):
             with torch.cuda.device(dev):
@@ -809,7 +857,8 @@ class _CudaGraphs:
                 blocks.copy_(blocks_u8)
                 lens.copy_(lens_in)
                 graph.replay()
-                count("concat.graph_runs", k1)
+                for name, k in runs:
+                    count(name, k)
                 return rows.clone(), totals.clone()
 
         return replay

@@ -20,6 +20,11 @@ Spans and counters of the served path:
                     `reset_counters()` empties it.  Names are
                     `<module or op>.<what>`, e.g. `concat.launches`,
                     `compress.d2h_bytes`.
+  count_launch(k)   one launch of the hand kernel k (`concat`, `tier_b`):
+                    `k.launches` when it runs now, `k.recorded` when a CUDA
+                    graph capture records it; each replay of that graph
+                    counts what it recorded as `k.graph_runs` (encode_v2).
+                    So launches plus graph runs are the kernel's runs.
 
 For the profiling tools: per-stage wall timings that synchronise the device
 at each boundary (so not for the served path, whose copies they would
@@ -51,6 +56,12 @@ def span(name: str):
 def count(name: str, n: int = 1) -> None:
     """Add n to the counter `name`."""
     _counts[name] = _counts.get(name, 0) + n
+
+
+def count_launch(kernel: str) -> None:
+    """Count one launch of a hand kernel, as run now or as recorded into a
+    CUDA graph capture on the current stream."""
+    count(f"{kernel}.recorded" if torch.cuda.is_current_stream_capturing() else f"{kernel}.launches")
 
 
 def counters() -> dict[str, int]:

@@ -301,11 +301,13 @@ def test_interleaved_shapes_keep_their_results(card, dense):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [True, False], ids=["dense", "fast"])
 def test_a_replay_counts_the_k1_runs_of_its_graph(card, dense):
-    """K1 launches in the eager call and in the capture, never in a replay,
-    where `concat.graph_runs` counts the launches its graph recorded."""
+    """K1 launches in the eager call; the capture records its launches
+    (`concat.recorded`), and every replay, the capturing call's too, counts
+    them as `concat.graph_runs`."""
     B = 7  # a batch size no other test uses: its first call is eager
     E._GRAPHS.capture((card.index, E.GRAPH_MAX_BLOCKS, dense), None, None)  # the full batch, captured first
-    names = ("concat.launches", "concat.graph_runs", "encode.eager_calls", "encode.graph_captures")
+    names = ("concat.launches", "concat.graph_runs", "encode.eager_calls", "encode.graph_captures",
+             "concat.recorded")
     steps = []
     for i in range(4):
         blocks, lens = _blocks(B, seed=9000 + 10 * i + dense, device=card)
@@ -314,7 +316,7 @@ def test_a_replay_counts_the_k1_runs_of_its_graph(card, dense):
         now = profiling.counters()
         steps.append(tuple(now.get(k, 0) - before.get(k, 0) for k in names))
     k1 = steps[0][0]
-    assert k1 > 0 and steps == [(k1, 0, 1, 0), (k1, k1, 0, 1), (0, k1, 0, 0), (0, k1, 0, 0)]
+    assert k1 > 0 and steps == [(k1, 0, 1, 0, 0), (0, k1, 0, 1, k1), (0, k1, 0, 0, 0), (0, k1, 0, 0, 0)]
 
 
 @pytest.mark.cuda
