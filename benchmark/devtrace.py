@@ -2,10 +2,15 @@
 to what the per-layer metrics read.
 
 The harness wraps each request in a `record_function` span named
-`SPAN_PREFIX + op`.  The stretch runs from the first span's start to the
-last span's end.  Device activity is every kernel, memcpy and memset on the
-card; kineto puts the card's timestamps on the host's clock, in
-microseconds.
+`SPAN_PREFIX + op`, on its client's host thread.  The stretch runs from the
+first span's start to the last span's end.  Device activity is every
+kernel, memcpy and memset on the card; kineto puts the card's timestamps on
+the host's clock, in microseconds.
+
+With several clients the request spans of different threads overlap.  The
+card's activity is then counted inside the requests where it falls inside
+their union, since the card serves them all; a host event belongs to the
+request span of its own thread.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ class Interval:
     end: float
     name: str
     cat: str
+    thread: tuple | None = None  # (pid, tid) of the event's host thread
 
 
 def _merge(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
@@ -42,7 +48,8 @@ def _merge(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
 @dataclass
 class TraceView:
     """One traced stretch: its request spans, the card's activity and the
-    host thread's events, with the byte counts of the traced requests."""
+    events of the request spans' host threads, with the byte counts of the
+    traced requests."""
 
     op: str
     kind: str
@@ -52,11 +59,16 @@ class TraceView:
     device: list[Interval]
     host: list[Interval]
     window: object = None  # the run's measured window (harness.Window), for the readers on the host's clock
-    _starts: list[float] = field(init=False, repr=False)
+    _union: list[tuple[float, float]] = field(init=False, repr=False)
+    _own: dict = field(init=False, repr=False)  # thread -> (starts, its request spans by start)
 
     def __post_init__(self):
         self.spans.sort(key=lambda i: i.start)
-        self._starts = [s.start for s in self.spans]
+        self._union = _merge([(s.start, s.end) for s in self.spans])
+        by_thread: dict = {}
+        for s in self.spans:
+            by_thread.setdefault(s.thread, []).append(s)
+        self._own = {t: ([s.start for s in spans], spans) for t, spans in by_thread.items()}
 
     @property
     def stretch(self) -> tuple[float, float]:
@@ -78,12 +90,19 @@ class TraceView:
         return 100.0 * (1.0 - self.busy_s() / self.window_s())
 
     def in_spans(self, d: Interval) -> bool:
-        i = bisect.bisect_right(self._starts, d.start) - 1
-        return i >= 0 and d.start <= self.spans[i].end
+        """Whether `d` starts inside the union of the request spans."""
+        i = bisect.bisect_right(self._union, (d.start, float("inf"))) - 1
+        return i >= 0 and d.start <= self._union[i][1]
+
+    def in_own_span(self, h: Interval) -> bool:
+        """Whether the host event `h` starts inside a request span of its own thread."""
+        starts, spans = self._own.get(h.thread, ((), ()))
+        i = bisect.bisect_right(starts, h.start) - 1
+        return i >= 0 and h.start <= spans[i].end
 
     def device_s_in_spans(self, cat: str, name_has: tuple[str, ...] = ("",)) -> float:
         """Summed device time of the activities of `cat` that start inside a
-        request span, whose names hold one of `name_has`."""
+        request span (`in_spans`), whose names hold one of `name_has`."""
         return sum(d.end - d.start for d in self.device
                    if d.cat == cat and any(k in d.name for k in name_has) and self.in_spans(d)) * 1e-6
 
@@ -98,7 +117,8 @@ class TraceView:
 
     def idle_gaps(self, top: int = 10) -> list[list]:
         """[host activity, seconds] of the longest spells in which the card ran
-        nothing, each named by the innermost host event around its middle."""
+        nothing, each named by the innermost host event around its middle:
+        of all the request spans' threads, the one that started last."""
         a, b = self.stretch
         edges = [a, *(t for iv in self.busy() for t in iv), b]
         gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)), reverse=True)
@@ -126,18 +146,19 @@ def load(path: Path, op: str, kind: str, requests: list[tuple[int, int]], uncomp
 
 def view(events: list[dict], op: str, kind: str, requests: list[tuple[int, int]], uncompressed: int) -> TraceView:
     span_name = SPAN_PREFIX + op
-    spans, device, host, span_threads = [], [], [], set()
+    spans, device, host = [], [], []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
-        iv = Interval(float(e["ts"]), float(e["ts"]) + float(e["dur"]), str(e.get("name", "")), str(e.get("cat", "")))
+        iv = Interval(float(e["ts"]), float(e["ts"]) + float(e["dur"]), str(e.get("name", "")), str(e.get("cat", "")),
+                      (e.get("pid"), e.get("tid")))
         if iv.cat == "user_annotation" and iv.name == span_name:
             spans.append(iv)
-            span_threads.add((e.get("pid"), e.get("tid")))
         if iv.cat in DEVICE_CATS:
             device.append(iv)
         elif iv.cat in HOST_CATS:
-            host.append((iv, (e.get("pid"), e.get("tid"))))
+            host.append(iv)
     if not spans:
         raise ValueError(f"no {span_name!r} spans in the trace")
-    return TraceView(op, kind, requests, uncompressed, spans, device, [h for h, t in host if t in span_threads])
+    span_threads = {s.thread for s in spans}
+    return TraceView(op, kind, requests, uncompressed, spans, device, [h for h in host if h.thread in span_threads])

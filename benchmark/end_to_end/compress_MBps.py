@@ -1,5 +1,7 @@
 """Uncompressed bytes of the compress requests completed in the window, over
-the window's whole time, in MB/s (10^6 bytes)."""
+the window's whole time, in MB/s (10^6 bytes).  With several clients, every
+client's requests, over the window from its opening to the last client's last
+return."""
 
 
 def read(window):

@@ -1,5 +1,6 @@
 """The 95th percentile (linear interpolation) of the latency of every request
-in the window, call to return, in ms."""
+in the window, call to return, in ms.  With several clients, the requests of
+every client together."""
 
 import numpy as np
 

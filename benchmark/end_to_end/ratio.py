@@ -1,5 +1,6 @@
 """Uncompressed bytes over stream bytes, summed over every compress request
-completed in the window: the stored size users pay for."""
+completed in the window: the stored size users pay for.  With several clients,
+every client's requests."""
 
 
 def read(window):

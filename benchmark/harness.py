@@ -1,10 +1,20 @@
 """One run of one cell: set-up, the measured window, the check, the metrics.
 
-The window is a closed loop with one client, as a codec library's caller
-waits for each call: each request calls `snappytpu_torch.api.compress` or
-`api.decompress` on host bytes and takes host bytes back.  The window opens
-with the first request after the warm-up and closes when the first request
-that ends past `seconds` returns; every request in it counts.
+The window is a closed loop, as a codec library's caller waits for each
+call: each request calls `snappytpu_torch.api.compress` or `api.decompress`
+on host bytes and takes host bytes back.  With one client (the traffic
+mix's `clients` 1 or absent) the window opens with the first request after
+the warm-up and closes when the first request that ends past `seconds`
+returns; every request in it counts.
+
+With `clients` N > 1, N threads each run one client over the one card, as
+the task threads of one process do.  Each makes the warm-up calls itself
+(so each has its own kept host buffers), then all wait at one barrier; the
+window opens when it releases.  Each client stops at its first request
+that ends past `seconds`, and the window closes when the last one stops;
+every client's requests count.  A request that raises is a failed request;
+a client thread that dies any other way fails the run, which then gives no
+result.
 
 Every answer is judged once the window has closed, and memory stays flat
 however long the window runs: the first answer for each unit is kept, and a
@@ -13,8 +23,10 @@ takes its verdict; only one that differs is kept besides.
 
 A traced run (`trace=True`) measures the same window, then profiles whole
 passes after it until they hold `TRACED_REQUESTS` requests, each wrapped in
-a `record_function` span: its numbers are the per-layer metrics, read from
-the traced passes or, for those on the host's clock, from the window.
+a `record_function` span on its client's thread: its numbers are the
+per-layer metrics, read from the traced passes or, for those on the host's
+clock, from the window.  With N clients the same N threads serve those
+passes at once, under a profiler of every thread.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ import gc
 import os
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import dataclass, field
@@ -45,6 +58,7 @@ class Request:
     in_bytes: int
     out_bytes: int
     failed: bool
+    client: int = 0
 
 
 @dataclass
@@ -53,13 +67,13 @@ class Answers:
 
     by_unit: dict[int, list[list]] = field(default_factory=dict)  # unit -> [[bytes, count], ...]
 
-    def add(self, unit: int, answer: bytes) -> None:
+    def add(self, unit: int, answer: bytes, count: int = 1) -> None:
         distinct = self.by_unit.setdefault(unit, [])
         for entry in distinct:
             if entry[0] == answer:
-                entry[1] += 1
+                entry[1] += count
                 return
-        distinct.append([answer, 1])
+        distinct.append([answer, count])
 
     def __iter__(self):
         """(unit, answer, count) of each distinct answer."""
@@ -91,11 +105,27 @@ def device_record(device, peak: int) -> dict:
     return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": peak}
 
 
-def _profiler(device):
+def _profiler(device, all_threads: bool = False):
+    """A profiler of the card and of the host thread that starts it, or,
+    with `all_threads`, of every host thread."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    if all_threads:
+        return torch.profiler.profile(activities=acts,
+                                      experimental_config=torch.profiler._ExperimentalConfig(profile_all_threads=True))
     return torch.profiler.profile(activities=acts)
+
+
+def _open_window(device, t_start: float) -> tuple[float, float]:
+    """(set-up seconds, the window's opening time), once every warm-up call
+    has returned: the peak of device memory is read from here on."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    gc.collect()
+    gc.freeze()
+    t_open = time.perf_counter()
+    return t_open - t_start, t_open
 
 
 def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> dict:
@@ -116,31 +146,34 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, device, t
             return api.decompress(x, device=device)
     uncompressed = [u.size for u in units]
     del units
-    for x in (inputs * WARM_CALLS)[: max(len(inputs), WARM_CALLS)]:  # warm-up: every call shape of the window, and
-        call(x)  # the allocator's blocks; each call returns host bytes, so the card is idle after
-    cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-    gc.collect()
-    gc.freeze()
-
-    window = Window(op, setup_s=time.perf_counter() - t_start)
-    answers = Answers()
-    passes = traffic.passes(len(inputs), seed)
-    t_open = time.perf_counter()
-    for order in passes:
-        if _serve(call, inputs, order, uncompressed, op, window.requests, answers, until=t_open + seconds):
-            break
-    window.seconds = window.requests[-1].end - t_open
-    traced: list[Request] = []
-    if trace:  # whole passes after the window, each request in a span
-        prof = _profiler(device)
-        prof.start()
-        while len(traced) < TRACED_REQUESTS:
-            _serve(call, inputs, next(passes), uncompressed, op, traced, answers, span=devtrace.SPAN_PREFIX + op)
-        prof.stop()
+    # warm-up: every call shape of the window, and the allocator's blocks; each call returns host bytes, so the card
+    # is idle after
+    warm = (inputs * WARM_CALLS)[: max(len(inputs), WARM_CALLS)]
+    n_clients = traffic.clients(cell.traffic)
+    if n_clients > 1:
+        window, traced, answers, prof = _serve_clients(n_clients, call, inputs, warm, uncompressed, op, seed, seconds,
+                                                       trace, device, t_start)
+    else:
+        for x in warm:
+            call(x)
+        setup_s, t_open = _open_window(device, t_start)
+        window = Window(op, setup_s=setup_s)
+        answers = Answers()
+        passes = traffic.passes(len(inputs), seed)
+        for order in passes:
+            if _serve(call, inputs, order, uncompressed, op, window.requests, answers, until=t_open + seconds):
+                break
+        window.seconds = window.requests[-1].end - t_open
+        traced: list[Request] = []
+        if trace:  # whole passes after the window, each request in a span
+            prof = _profiler(device)
+            prof.start()
+            while len(traced) < TRACED_REQUESTS:
+                _serve(call, inputs, next(passes), uncompressed, op, traced, answers, span=devtrace.SPAN_PREFIX + op)
+            prof.stop()
     gc.unfreeze()
 
+    cuda = torch.device(device).type == "cuda"
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     found = forbidden_modules()
     if found:
@@ -167,7 +200,88 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, device, t
     return result
 
 
-def _serve(call, inputs, order, uncompressed, op, out: list[Request], answers: Answers, until=None, span=None) -> bool:
+def _serve_clients(n: int, call, inputs, warm, uncompressed, op, seed: int, seconds: float, trace: bool, device,
+                   t_start: float):
+    """`n` closed-loop clients at once, each in a thread of its own:
+    (window, traced requests, answers, profiler or None)."""
+    window = Window(op, setup_s=0.0)
+    t_open = 0.0
+    requests: list[list[Request]] = [[] for _ in range(n)]
+    traced: list[list[Request]] = [[] for _ in range(n)]
+    answers = [Answers() for _ in range(n)]
+    held, lock = 0, threading.Lock()  # traced requests so far, over the clients
+
+    def open_window():
+        nonlocal t_open
+        window.setup_s, t_open = _open_window(device, t_start)
+
+    opened = threading.Barrier(n, action=open_window)
+    closed, go = threading.Barrier(n + 1), threading.Barrier(n + 1)  # the main thread starts the profiler between
+    barriers, errors = (opened, closed, go), []
+
+    def client(k: int) -> None:
+        nonlocal held
+        try:
+            for x in warm:
+                call(x)
+            opened.wait()
+            passes = traffic.passes(len(inputs), seed, k)
+            for order in passes:
+                if _serve(call, inputs, order, uncompressed, op, requests[k], answers[k], until=t_open + seconds,
+                          client=k):
+                    break
+            if not trace:
+                return
+            closed.wait()
+            go.wait()
+            while True:  # whole passes, until the clients together hold TRACED_REQUESTS
+                with lock:
+                    if held >= TRACED_REQUESTS:
+                        return
+                before = len(traced[k])
+                _serve(call, inputs, next(passes), uncompressed, op, traced[k], answers[k],
+                       span=devtrace.SPAN_PREFIX + op, client=k)
+                with lock:
+                    held += len(traced[k]) - before
+        except BaseException as e:  # noqa: BLE001 - any death of a client fails the run, below
+            errors.append(e)
+            for b in barriers:
+                b.abort()
+
+    threads = [threading.Thread(target=client, args=(k,), name=f"client{k}", daemon=True) for k in range(n)]
+    for t in threads:
+        t.start()
+    prof = None
+    try:
+        if trace:
+            closed.wait()
+            started = _profiler(device, all_threads=True)
+            started.start()
+            prof = started
+            go.wait()
+    except BaseException as e:  # noqa: BLE001 - raised below, once every client has ended
+        errors.append(e)
+        for b in barriers:
+            b.abort()
+    for t in threads:
+        t.join()
+    if prof is not None:
+        prof.stop()
+    if errors:
+        first = next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)), errors[0])
+        raise RuntimeError(f"a client of {n} failed; the run gives no result") from first
+
+    window.requests = sorted((r for rs in requests for r in rs), key=lambda r: r.start)
+    window.seconds = max(r.end for r in window.requests) - t_open
+    merged = answers[0]
+    for other in answers[1:]:
+        for unit, answer, count in other:
+            merged.add(unit, answer, count)
+    return window, sorted((r for rs in traced for r in rs), key=lambda r: r.start), merged, prof
+
+
+def _serve(call, inputs, order, uncompressed, op, out: list[Request], answers: Answers, until=None, span=None,
+           client: int = 0) -> bool:
     """Serve the requests of one pass in `order`, appending each to `out`;
     True where one ended at or past `until`, which ends the pass there."""
     for i in order:
@@ -181,7 +295,8 @@ def _serve(call, inputs, order, uncompressed, op, out: list[Request], answers: A
                 traceback.print_exc(file=sys.stderr)
             answer, failed = b"", True
         t1 = time.perf_counter()
-        out.append(Request(int(i), t0, t1, len(inputs[i]) if op == "decompress" else uncompressed[i], len(answer), failed))
+        out.append(Request(int(i), t0, t1, len(inputs[i]) if op == "decompress" else uncompressed[i], len(answer), failed,
+                           client))
         if not failed:
             answers.add(int(i), answer)
         if until is not None and t1 >= until:

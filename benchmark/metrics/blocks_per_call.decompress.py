@@ -1,7 +1,8 @@
 """Blocks a block-route device call of `api.decompress` decodes: the
 program's counters `decompress.blocks` over `decompress.device_calls`, over
-every decompress call of the run, the warm-up's with them.  A program
-without those counters reads nothing."""
+every decompress call of the run, the warm-up's with them. A program without
+those counters reads nothing.  With several clients, the counters sum every
+client's calls."""
 
 from benchmark import decode_spans
 

@@ -1,5 +1,7 @@
 """Device time of the host-to-device and device-to-host copies inside the
-request spans of a decompress cell, per MiB of output, in ms/MiB."""
+request spans of a decompress cell, per MiB of output, in ms/MiB. With
+several clients, the copies that start inside the union of the overlapping
+request spans, per MiB of every traced request."""
 
 from benchmark import decode_spans
 

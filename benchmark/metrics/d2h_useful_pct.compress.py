@@ -1,6 +1,7 @@
 """The share of the encoder's output copied back to the host that is stream,
 in %: the program's counters `compress.stream_bytes` over
-`compress.d2h_bytes`, over every compress call of the run."""
+`compress.d2h_bytes`, over every compress call of the run. With several
+clients, the counters sum every client's calls."""
 
 from benchmark import program_spans
 

@@ -1,6 +1,8 @@
 """The least time of the traced decompress requests (the stream read once,
 the output written once, at the card's peak bandwidth) over the device time
-of every kernel launched inside their spans, in %."""
+of every kernel launched inside their spans, in %.  With several clients,
+every traced request's least time over the kernels that start inside the
+union of the overlapping request spans."""
 
 from benchmark import decode_spans, roofline
 

@@ -1,5 +1,7 @@
-"""The share of the traced stretch of a compress cell in which the card ran no
-kernel, memcpy or memset, in %."""
+"""The share of the traced stretch of a compress cell in which the card ran
+no kernel, memcpy or memset, in %.  With several clients, the stretch runs
+from the first request span's start to the last one's end, whatever their
+threads."""
 
 
 def read(view):

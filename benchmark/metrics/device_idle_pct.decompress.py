@@ -1,5 +1,7 @@
 """The share of the traced stretch of a decompress cell in which the card ran
-no kernel, memcpy or memset, in %."""
+no kernel, memcpy or memset, in %.  With several clients, the stretch runs
+from the first request span's start to the last one's end, whatever their
+threads."""
 
 from benchmark import decode_spans
 

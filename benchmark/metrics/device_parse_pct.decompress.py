@@ -1,9 +1,9 @@
 """The share of `api.decompress`'s block-route device calls whose blocks the
 card parsed (K2), in %: the program's counters `decompress.k2_calls` over
 `decompress.device_calls`, over every decompress call of the run, the
-warm-up's with them.  A program without the K2 counter (one that builds
-every call's tapes on the host, or a run in which no call took K2) reads
-nothing."""
+warm-up's with them. A program without the K2 counter (one that builds every
+call's tapes on the host, or a run in which no call took K2) reads nothing.
+With several clients, the counters sum every client's calls."""
 
 from benchmark import decode_spans
 

@@ -1,9 +1,9 @@
 """The share of the encoder's device calls that ran as a CUDA graph replay,
 in %: the program's counters `encode.graph_replays` over
-`encode.graph_replays` + `encode.graph_captures` + `encode.eager_calls`,
-over every compress call of the run, the warm-up's with them.  A run
-without a card reads 0: every call there is eager.  A program without
-those counters reads nothing."""
+`encode.graph_replays` + `encode.graph_captures` + `encode.eager_calls`, over
+every compress call of the run, the warm-up's with them. A run without a card
+reads 0: every call there is eager. A program without those counters reads
+nothing.  With several clients, the counters sum every client's calls."""
 
 from benchmark import program_spans
 

@@ -1,7 +1,8 @@
 """The host's own framing and copies in a compress cell: the summed time of
 the program's `snappy.pack`, `snappy.rows`, `snappy.compact` and
 `snappy.join` spans inside the request spans, per MiB of uncompressed bytes,
-in ms/MiB."""
+in ms/MiB.  With several clients, each step counts inside the request span of
+its own thread, and the times are summed over the threads."""
 
 from benchmark import program_spans
 

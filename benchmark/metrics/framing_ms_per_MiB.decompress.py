@@ -1,6 +1,8 @@
 """The host's own framing in a decompress cell: the summed time of the
 program's `snappy.scan`, `snappy.split`, `snappy.tape`, `snappy.compact` and
-`snappy.join` spans inside the request spans, per MiB of output, in ms/MiB."""
+`snappy.join` spans inside the request spans, per MiB of output, in ms/MiB.
+With several clients, each step counts inside the request span of its own
+thread, and the times are summed over the threads."""
 
 from benchmark import decode_spans, program_spans
 

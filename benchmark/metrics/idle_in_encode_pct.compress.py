@@ -1,6 +1,8 @@
 """The share of a compress cell's traced stretch in which the card ran
 nothing while the host was inside the program's `snappy.encode` spans (the
-host enqueuing the encoder's ops), in %."""
+host enqueuing the encoder's ops), in %.  With several clients, the card idle
+while any thread was inside such a span of its own request, each second
+counted once."""
 
 from benchmark import program_spans
 

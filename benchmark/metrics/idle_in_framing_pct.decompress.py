@@ -1,6 +1,8 @@
 """The share of a decompress cell's traced stretch in which the card ran
 nothing while the host was inside the program's `snappy.scan`,
-`snappy.split`, `snappy.tape`, `snappy.compact` or `snappy.join` spans, in %."""
+`snappy.split`, `snappy.tape`, `snappy.compact` or `snappy.join` spans, in %.
+With several clients, the card idle while any thread was inside such a span
+of its own request, each second counted once."""
 
 from benchmark import decode_spans, program_spans
 

@@ -1,5 +1,6 @@
 """`p95_ms` where the benchmark holds it to no bound: the end-to-end reader's
-number, taken from the traced run's measured window."""
+number, taken from the traced run's measured window.  With several clients,
+every client's requests over the window that the last one closes."""
 
 from pathlib import Path
 

@@ -1,25 +1,27 @@
 """What the per-layer metrics of the program's own steps read: the spans
 `snappy.<step>` that `snappytpu_torch.profiling.span` records inside
 `api.compress` while a torch profiler records.  kineto writes them as user
-annotations on the request spans' thread, so they are among a TraceView's
-host events, on the card's clock.  A program without them has none, and
-the readers read nothing (None)."""
+annotations on the thread of the request that calls the program, so they
+are among a TraceView's host events, on the card's clock.  A program
+without them has none, and the readers read nothing (None).
+
+With several clients, requests overlap: each step belongs to the request
+span of its own thread, and a reader that sums steps' time sums it over the
+threads."""
 
 from __future__ import annotations
-
-import bisect
 
 from .devtrace import Interval, _merge
 
 PREFIX = "snappy."
 FRAMING = ("pack", "rows", "compact", "join")  # the host's framing and copies of api.compress
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
 def steps(view, *names: str) -> list[Interval]:
-    """The program's spans `snappy.<name>` that start inside a request span, by start."""
+    """The program's spans `snappy.<name>` that start inside a request span
+    of their own thread, by start."""
     want = {PREFIX + n for n in names}
-    return sorted((h for h in view.host if h.cat == "user_annotation" and h.name in want and view.in_spans(h)),
+    return sorted((h for h in view.host if h.cat == "user_annotation" and h.name in want and view.in_own_span(h)),
                   key=lambda h: h.start)
 
 
@@ -42,22 +44,8 @@ def _overlap_us(a: list[tuple[float, float]], b: list[tuple[float, float]]) -> f
 
 def idle_s(view, spans: list[Interval]) -> float:
     """Seconds of the traced stretch in which the card ran nothing while the
-    host was inside one of `spans`."""
+    host was inside one of `spans`: with several clients, while any thread
+    was inside one of them, each second counted once."""
     a, b = view.stretch
     inside = _merge([(max(s.start, a), min(s.end, b)) for s in spans if s.end > a and s.start < b])
     return (sum(e - s for s, e in inside) - _overlap_us(inside, view.busy())) * 1e-6
-
-
-def launches(view, spans: list[Interval]) -> int:
-    """Kernel launches that start inside one of `spans`: the host's CUDA
-    runtime and driver calls whose names hold `LaunchKernel`, a driver call
-    inside a runtime call counted once with it."""
-    starts = [s.start for s in spans]
-    n, last_end = 0, float("-inf")
-    for h in sorted((h for h in view.host if h.cat in LAUNCH_CATS and "LaunchKernel" in h.name),
-                    key=lambda h: (h.start, -h.end)):
-        i = bisect.bisect_right(starts, h.start) - 1
-        if i < 0 or h.start > spans[i].end or h.end <= last_end:
-            continue
-        n, last_end = n + 1, h.end
-    return n

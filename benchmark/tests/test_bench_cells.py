@@ -60,10 +60,11 @@ def test_new_files_are_found_by_name(tmp_path):
     assert "kernel_s.compress" not in [m.name for m in old.per_layer]
 
 
-@pytest.mark.parametrize("bad", [{"clients": 4}, {"loop": "open"}, {"judge_share": 0.1}, {"op": "roundtrip"}])
+@pytest.mark.parametrize("bad", [{"clients": 17}, {"loop": "open"}, {"judge_share": 0.1}, {"op": "roundtrip"}])
 def test_a_traffic_file_the_harness_cannot_run_is_refused(tmp_path, bad):
-    """A key the harness does not read, or an op it has not, stops the load
-    before any run: a mix never runs as something other than it says."""
+    """A key the harness does not read, an op it has not, or more clients
+    than it runs, stops the load before any run: a mix never runs as
+    something other than it says."""
     bench = tmp_path / "benchmark"
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "traffic" / "whole-compress.json").write_text(json.dumps({"op": "compress", "why": "test"} | bad))

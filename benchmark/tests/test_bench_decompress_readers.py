@@ -1,6 +1,6 @@
-"""The decompress cells' per-layer readers on a small synthetic profiler trace
+"""The decompress cell's per-layer readers on a small synthetic profiler trace
 whose expected values are worked out by hand, what they read of other
-views, and a CPU dry run of both decompress cells through the harness."""
+views, and a CPU dry run of the decompress cell through the harness."""
 
 import dataclasses
 import time
@@ -14,10 +14,13 @@ from snappytpu_torch import profiling
 ROOT = Path(__file__).resolve().parents[2]
 KIND = "NVIDIA H100 80GB HBM3"
 REQS = [(2**19, 2**20), (2**19, 2**20)]  # (stream, output) bytes of each traced request
-CELLS = ("synth50-fast.whole-decompress", "parquet-pages-fast.whole-decompress")
+CELLS = ("parquet-pages-fast.whole-decompress",)
+# the sample's configuration under the decompress mix: no cell since its runs spread too widely for a bound, but the
+# harness still drives it
+SAMPLE = "synth50-fast"
 NEW = ("decompress_MBps.window", "device_idle_pct.decompress", "framing_ms_per_MiB.decompress",
        "idle_in_framing_pct.decompress", "copy_ms_per_MiB.decompress", "decode_roofline_pct",
-       "blocks_per_call.decompress")
+       "blocks_per_call.decompress", "device_parse_pct.decompress")
 DEVICE_TRACE = ("device_idle_pct.decompress", "idle_in_framing_pct.decompress", "copy_ms_per_MiB.decompress",
                 "decode_roofline_pct")
 STEPS = ("scan", "split", "tape", "h2d", "decode", "d2h", "compact", "join")
@@ -81,7 +84,7 @@ def view(op="decompress", **kw):
 @pytest.fixture
 def counted(monkeypatch):
     monkeypatch.setattr(profiling, "counters", lambda: {"decompress.device_calls": 2, "decompress.blocks": 153,
-                                                        "compress.d2h_bytes": 1000})
+                                                        "decompress.k2_calls": 1, "compress.d2h_bytes": 1000})
 
 
 def test_the_decompress_readers(counted):
@@ -94,6 +97,7 @@ def test_the_decompress_readers(counted):
     least = roofline.least_seconds("decompress", REQS, KIND)
     assert r["decode_roofline_pct"].read(v) == pytest.approx(100 * least / 45e-6)
     assert r["blocks_per_call.decompress"].read(v) == pytest.approx(76.5)
+    assert r["device_parse_pct.decompress"].read(v) == pytest.approx(50.0)
 
 
 def test_idle_gaps_are_named_by_the_decompress_steps():
@@ -148,23 +152,28 @@ def test_found_by_name_for_the_decompress_cells_only():
         assert [m.name for m in cell.end_to_end] == ["p95_ms", "setup_s"]
     for name in ("synth50-fast.whole-compress", "synth50-dense.whole-compress"):
         assert not {m.name for m in cells.load(ROOT, name).per_layer} & set(NEW)
+    with pytest.raises(KeyError):
+        cells.load(ROOT, SAMPLE + ".whole-decompress")
 
 
 def test_the_pages_configuration():
     """64 pages of 1 MiB, the fast profile, the sample's contents."""
     pages = cells.load(ROOT, "parquet-pages-fast.whole-decompress").config
     assert list(pages["objects"]) == [f"page{i:02d}" for i in range(64)] and set(pages["objects"].values()) == {2**20}
-    fast = cells.load(ROOT, "synth50-fast.whole-decompress").config
+    fast = cells.load(ROOT, SAMPLE + ".whole-compress").config
     keys = ("profile", "contents", "match_proba", "lit_proba", "block_bytes", "guarantees")
     assert {k: pages[k] for k in keys} == {k: fast[k] for k in keys}
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_dry_run_of_a_decompress_cell(workload):
-    """Both cells through the harness on the CPU, each object cut to 1/400 of
+@pytest.mark.parametrize("config", [None, SAMPLE])
+def test_dry_run_of_a_decompress_cell(config):
+    """The pages cell through the harness on the CPU, as it is and with the
+    sample's configuration in place of its own, each object cut to 1/400 of
     its size: correct, and every reader on the host's clock reads a number;
     at this size each object is one block, so each device call holds one."""
-    cell = cells.load(ROOT, workload)
+    cell = cells.load(ROOT, CELLS[0])
+    if config:
+        cell = dataclasses.replace(cell, config=cells.load(ROOT, config + ".whole-compress").config)
     objects = {k: v // 400 for k, v in list(cell.config["objects"].items())[:3]}
     cell = dataclasses.replace(cell, config=cell.config | {"objects": objects})
     profiling.reset_counters()

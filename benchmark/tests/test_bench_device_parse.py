@@ -18,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[2]
 KIND = "NVIDIA H100 80GB HBM3"
 REQS = [(2**19, 2**20)]
 NAME = "device_parse_pct.decompress"
-CELLS = ["synth50-fast.whole-decompress", "parquet-pages-fast.whole-decompress"]
+CELLS = ["parquet-pages-fast.whole-decompress"]
 
 
 def ev(cat, name, ts, dur, pid=1, tid=1):

@@ -13,8 +13,8 @@ KIND = "NVIDIA H100 80GB HBM3"
 REQS = [(2**20, 2**19), (2**20, 2**19)]
 
 NEW = ("framing_ms_per_MiB.compress", "d2h_useful_pct.compress", "idle_in_framing_pct.compress",
-       "idle_in_encode_pct.compress", "launches_per_call.compress")
-DEVICE_TRACE = ("idle_in_framing_pct.compress", "idle_in_encode_pct.compress", "launches_per_call.compress")
+       "idle_in_encode_pct.compress")
+DEVICE_TRACE = ("idle_in_framing_pct.compress", "idle_in_encode_pct.compress")
 STEPS = ("pack", "h2d", "encode", "d2h", "rows", "compact", "join")
 
 
@@ -46,12 +46,7 @@ def trace(op="compress", program=True, device=True):
     350-380 (encode), DtoH 410-620 (20 us into rows), a kernel 1360-1500
     (encode), DtoH 1510-1690, a memset 1760-1770 (compact).  Busy in
     framing 20 + 20 + 10 = 50, so idle in framing 810 us; encode 250 + 150
-    us with 140 + 30 + 140 busy, so idle in encode 90 us.
-
-    Launches: in the first encode a runtime launch and a runtime launch
-    holding a driver launch (2), in the second a driver launch alone and a
-    runtime `ExC` launch (2): 4 over 2 calls.  Not counted: a launch in h2d,
-    a memcpy call in encode, a launch on another thread."""
+    us with 140 + 30 + 140 busy, so idle in encode 90 us."""
     span = devtrace.SPAN_PREFIX + op
     events = [ev("user_annotation", span, 0, 1000), ev("user_annotation", span, 1200, 800)]
     if program:
@@ -59,12 +54,6 @@ def trace(op="compress", program=True, device=True):
         events += _request(1200, [1210, 1300, 1350, 1500, 1700, 1750, 1800, 1990])
         events += [ev("user_annotation", "snappy.pack", 2100, 100),  # outside the request spans
                    ev("user_annotation", "snappy.join", 0, 2000, tid=2)]  # another thread
-    events += [
-        ev("cuda_runtime", "cudaLaunchKernel", 105, 1), ev("cuda_runtime", "cudaMemcpyAsync", 152, 1),
-        ev("cuda_runtime", "cudaLaunchKernel", 155, 3), ev("cuda_runtime", "cudaLaunchKernel", 340, 5),
-        ev("cuda_driver", "cuLaunchKernel", 341, 3), ev("cuda_driver", "cuLaunchKernel", 1355, 2),
-        ev("cuda_runtime", "cudaLaunchKernelExC", 1400, 2), ev("cuda_runtime", "cudaLaunchKernel", 200, 1, tid=2),
-    ]
     if device:
         events += [
             ev("kernel", "k_prev", 50, 20, pid=0, tid=7),
@@ -94,7 +83,6 @@ def test_the_program_span_readers(counted):
     assert r["d2h_useful_pct.compress"].read(v) == pytest.approx(54.0)
     assert r["idle_in_framing_pct.compress"].read(v) == pytest.approx(100 * 810 / 2000)
     assert r["idle_in_encode_pct.compress"].read(v) == pytest.approx(100 * 90 / 2000)
-    assert r["launches_per_call.compress"].read(v) == pytest.approx(2.0)
 
 
 def test_idle_gaps_are_named_by_the_program_steps():

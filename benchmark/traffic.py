@@ -2,13 +2,16 @@
 
 Keys of a traffic file (`traffic/<name>.json`), and no others:
 
-  op    "compress" or "decompress": which call of the API each request
-        makes, one request per object of the configuration;
-  why   what the mix stands for.
+  op       "compress" or "decompress": which call of the API each request
+           makes, one request per object of the configuration;
+  clients  how many closed-loop callers send at once over the one card, a
+           whole number from 1 to 16; 1 where the key is absent;
+  why      what the mix stands for.
 
-The harness runs one closed-loop client.  Every pass over the objects goes
-in an order drawn from the seed; every seed sends the same objects, so a
-seed changes the order and the contents, never the amount of work.
+Each client sends its own passes over the objects, each pass in an order
+drawn from the seed and the client's index; every seed sends the same
+objects, so a seed changes the order and the contents, never the amount of
+work.  Client 0 draws the order one client has always drawn.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from collections.abc import Iterator
 import numpy as np
 
 OPS = ("compress", "decompress")
-KEYS = ("op", "why")
+KEYS = ("op", "clients", "why")
+MAX_CLIENTS = 16
 
 
 def check(traffic: dict) -> dict:
@@ -28,7 +32,15 @@ def check(traffic: dict) -> dict:
         raise ValueError(f"traffic keys the harness does not read: {unknown}")
     if traffic.get("op") not in OPS:
         raise ValueError(f"unknown op {traffic.get('op')!r}")
+    n = traffic.get("clients", 1)
+    if type(n) is not int or not 1 <= n <= MAX_CLIENTS:
+        raise ValueError(f"clients must be a whole number from 1 to {MAX_CLIENTS}, not {n!r}")
     return traffic
+
+
+def clients(traffic: dict) -> int:
+    """How many closed-loop clients the mix runs at once."""
+    return check(traffic).get("clients", 1)
 
 
 def units(traffic: dict, objects: dict[str, np.ndarray]) -> list[np.ndarray]:
@@ -37,8 +49,9 @@ def units(traffic: dict, objects: dict[str, np.ndarray]) -> list[np.ndarray]:
     return list(objects.values())
 
 
-def passes(n_units: int, seed: int) -> Iterator[np.ndarray]:
-    """An endless run of passes, each a permutation of the units drawn from the seed."""
-    rng = np.random.default_rng([int(seed), 1])
+def passes(n_units: int, seed: int, client: int = 0) -> Iterator[np.ndarray]:
+    """An endless run of passes, each a permutation of the units drawn from
+    the seed and, for a client other than the first, the client's index."""
+    rng = np.random.default_rng([int(seed), 1] + ([client] if client else []))
     while True:
         yield rng.permutation(n_units)
