@@ -5,7 +5,9 @@ The sources in csrc/ are compiled by nvcc for sm_90a, one nvcc process per
 plain C interface, loaded with ctypes.  The build happens at first use,
 into _build/ beside this file, under a name that carries a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
-at once.  Nothing here runs at import time: the CPU routes never need nvcc.
+at once.  Threads that reach the first use together build once: the others
+wait for it.  Nothing here runs at import time: the CPU routes never need
+nvcc.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -50,6 +53,7 @@ _SIGNATURES = {
     # (blocks, lens, scratch, out_len, out_dist, B, stride, nkeys, key_ids, rank_mask, stream) -> cudaError_t
     "snappy_tier_b_matches": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint64, _I, _P),
 }
+_BUILDING = threading.Lock()  # one build a process: a build's files are named by the process, not the thread
 
 
 def sources() -> list[Path]:
@@ -77,9 +81,13 @@ def build() -> Path:
     """Compile csrc/*.cu unless a library for the current sources exists.
     The compilers' output (ptxas register and shared-memory report) is kept
     beside the library as .log."""
-    so = library_path()
-    if so.is_file():
-        return so
+    with _BUILDING:
+        so = library_path()
+        return so if so.is_file() else _compile(so)
+
+
+def _compile(so: Path) -> Path:
+    """Compile and link csrc/*.cu into the library `so`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     cus = [p for p in sources() if p.suffix == ".cu"]

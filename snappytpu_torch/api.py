@@ -24,9 +24,11 @@ taking the same decode routes:
     reaching past the window, or a corrupt one) goes to the sequential
     host decoder, native or model, which decodes it or raises CorruptError.
 
-The block route's host arrays (rows, tapes, the decoded rows and stream)
-are the calling thread's reused buffers (hostbuf.py), pinned where they
-cross to a CUDA device, so a call's time does not follow the allocator's.
+The host arrays of both routes are the calling thread's reused buffers
+(hostbuf.py), pinned where they cross to a CUDA device, so a call's time
+does not follow the allocator's: compress's staged blocks and lengths, its
+compressed rows and totals; the block route's rows, tapes, decoded rows and
+stream.
 The file codec (stream/filecodec.py) takes the same route window by
 window: split_blocks, then decode_rows into a window-sized buffer.
 
@@ -52,9 +54,10 @@ block-route calls K2 parsed), `decompress.reroutes` (streams the block
 route handed to the windowed route), `decompress.windowed_calls` (K4
 calls) and `decompress.host_fallbacks`; and the encoder's
 `encode.graph_replays`, `encode.graph_captures`, `encode.eager_calls` and
-`encode.graph_fallbacks` (one of the first three per device call), and
-`concat.graph_runs` and `tier_b.graph_runs`, K1's and K7's runs inside
-the replays.
+`encode.graph_fallbacks` (one of the first three per device call),
+`encode.graph_waits` (a device call that waited for another thread's, span
+`snappy.graph_wait` inside `encode`), and `concat.graph_runs` and
+`tier_b.graph_runs`, K1's and K7's runs inside the replays.
 """
 
 from __future__ import annotations
@@ -103,26 +106,51 @@ def check_totals(totals: np.ndarray, first: int = 0) -> None:
         )
 
 
+def _to_device(name: str, a: np.ndarray, device) -> torch.Tensor:
+    """The host array `a` on `device`.  For a CUDA device it is first copied
+    into this thread's kept pinned buffer `name`, so that the copy to the
+    card is the copy engine's alone and does not wait for the card's queue."""
+    if not hostbuf.pinned_for(device):
+        return torch.from_numpy(a).to(device)
+    staged = hostbuf.take(name, a.shape, torch.from_numpy(a[:0]).dtype, pinned=True)
+    staged.numpy()[...] = a
+    return staged.to(device, non_blocking=True)
+
+
 def encode_rows(blocks: np.ndarray, lens: np.ndarray, profile: str = "dense", *, device, first: int = 0):
     """Encode (B, BS) host blocks on `device` in calls of at most DEVICE_BATCH
     blocks -> host ((B, PAD_OUT) uint8, (B,) int32).  CapacityError on a
-    poisoned block, named as first + its index."""
+    poisoned block, named as first + its index.
+
+    The answer lies in this thread's kept buffers (hostbuf.py), pinned for a
+    CUDA device, as do the staged inputs: the caller is done with it before
+    the thread's next call here, or copies it out.  On a CUDA device the
+    call waits on an event behind its own copies back: a blocking copy would
+    wait for the whole stream, so callers on other threads, whose replays
+    queue behind each other on it, would all wake only when it drained."""
     B = blocks.shape[0]
-    # every input is copied before the first launch: a copy from pageable
-    # memory waits for its card's queue
+    pinned = hostbuf.pinned_for(device)
+    # every input is copied before the first launch
     with profiling.span("snappy.h2d"):
-        staged = [(s, [torch.from_numpy(a[s : s + DEVICE_BATCH]).to(device) for a in (blocks, lens)])
-                  for s in range(0, B, DEVICE_BATCH)]
+        blocks_d, lens_d = (_to_device(name, np.ascontiguousarray(a), device)
+                            for name, a in (("api.enc_blocks", blocks), ("api.enc_lens", lens)))
+        staged = [(s, blocks_d[s : s + DEVICE_BATCH], lens_d[s : s + DEVICE_BATCH]) for s in range(0, B, DEVICE_BATCH)]
     with profiling.span("snappy.encode"):
-        calls = [(s, encode_blocks(b, n, profile)) for s, (b, n) in staged]
+        calls = [(s, encode_blocks(b, n, profile)) for s, b, n in staged]
+    comp = hostbuf.take("api.comp", (B, C.MAX_COMPRESSED_BLOCK_SIZE), torch.uint8, pinned=pinned)
+    totals = hostbuf.take("api.totals", (B,), torch.int32, pinned=pinned)
     with profiling.span("snappy.d2h"):
-        host = [(s, c.cpu().numpy(), t.cpu().numpy()) for s, (c, t) in calls]
+        for s, (c, t) in calls:
+            comp[s : s + c.shape[0]].copy_(c, non_blocking=pinned)
+            totals[s : s + t.shape[0]].copy_(t, non_blocking=pinned)
+        if pinned:  # wait for this call's copies, not for what other threads queued on the stream since
+            landed = torch.cuda.Event()
+            landed.record(torch.cuda.current_stream(device))
+            landed.synchronize()
+    comp, totals = comp.numpy(), totals.numpy()
     with profiling.span("snappy.rows"):
-        comp, totals = np.empty((B, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8), np.empty(B, np.int32)
-        for s, c, t in host:
-            comp[s : s + c.shape[0]], totals[s : s + t.shape[0]] = c, t
         check_totals(totals, first)
-        profiling.count("compress.d2h_bytes", sum(c.nbytes + t.nbytes for _, c, t in host))
+        profiling.count("compress.d2h_bytes", sum(c.nbytes + t.nbytes for _, (c, t) in calls))
         profiling.count("compress.stream_bytes", int(totals.sum(dtype=np.int64)))
     return comp, totals
 

@@ -47,14 +47,15 @@ inside someone else's capture run the chain eagerly.  Nothing else chooses
 between the paths.  Counters (profiling's registry): `encode.graph_replays`,
 `encode.graph_captures`, `encode.eager_calls` (one of the three per call),
 `encode.graph_fallbacks` (a capture that raised: its key runs eagerly from
-then on, with a warning), `concat.graph_runs` and `tier_b.graph_runs` (K1's
+then on, with a warning), `encode.graph_waits` (a keyed call that found the
+cache's lock held by another thread; the wait is the span
+`snappy.graph_wait`), `concat.graph_runs` and `tier_b.graph_runs` (K1's
 and K7's runs inside the replays).  `encode_block_core` and the stages stay
 eager for the tools that time them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import threading
 import warnings
 from typing import NamedTuple
@@ -62,7 +63,7 @@ from typing import NamedTuple
 import torch
 
 from ..format import constants as C
-from ..profiling import count, counters
+from ..profiling import count, counters, span
 
 from .concat import concat_rows
 from .tier_b import tier_b as tier_b_kernel
@@ -706,7 +707,6 @@ def check_blocks(blocks_u8: torch.Tensor, lens: torch.Tensor) -> None:
 # the full batch's graph (_CudaGraphs), so the 256 graphs share one 128-block
 # graph's working set.
 GRAPH_MAX_BLOCKS = 128
-_NO_LOCK = contextlib.nullcontext()
 
 
 def graph_key(blocks_u8: torch.Tensor, dense: bool):
@@ -728,7 +728,9 @@ class GraphCache:
     captured one is kept for the cache's life (graph_key bounds the keys).
     A capture that raises marks its key eager for the cache's life and
     counts `encode.graph_fallbacks`.  A lock keeps the bookkeeping, a
-    capture and a replay whole between threads."""
+    capture and a replay whole between threads, so replays run one at a
+    time: a keyed call waits for it in the span `snappy.graph_wait`, and
+    one that finds it held by another thread counts `encode.graph_waits`."""
 
     def __init__(self, capture):
         self.capture = capture
@@ -738,11 +740,20 @@ class GraphCache:
         self._lock = threading.Lock()
 
     def run(self, key, eager, *args):
-        with self._lock if key is not None else _NO_LOCK:
-            replay = None if key is None else self._replay(key, args)
+        if key is None:
+            count("encode.eager_calls")
+            return eager(*args)
+        with span("snappy.graph_wait"):
+            if not self._lock.acquire(blocking=False):
+                count("encode.graph_waits")
+                self._lock.acquire()
+        try:
+            replay = self._replay(key, args)
             if replay is not None:
                 return replay(*args)
             count("encode.eager_calls")
+        finally:
+            self._lock.release()
         return eager(*args)
 
     def _replay(self, key, args):

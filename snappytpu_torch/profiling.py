@@ -6,18 +6,23 @@ Spans and counters of the served path:
                     `api.decompress`, named `snappy.<step>`.  It enters
                     `torch.profiler.record_function(name)` only while a
                     torch profiler is recording, and otherwise costs one
-                    flag check.  So tracing is on exactly when someone
-                    profiles, as `device_trace` below does, and kineto
-                    writes the spans into the same trace, on the same clock,
-                    as the kernels and copies they enqueue.  Nothing is kept
-                    besides what the profiler keeps.  The API is synchronous
-                    and runs on the calling thread: a span belongs to the
-                    request whose `snappy.compress` or `snappy.decompress`
-                    span encloses it on that thread, and that enclosing span
-                    is the request's identifier.
+                    flag check.  The flag is torch's process-wide one, set
+                    while any torch profiler records: a profiler of every
+                    thread (`profile_all_threads`) records on threads whose
+                    own profiler flag stays off, so the spans of each client
+                    thread are in its trace too.  So tracing is on exactly
+                    when someone profiles, as `device_trace` below does, and
+                    kineto writes the spans into the same trace, on the same
+                    clock, as the kernels and copies they enqueue.  Nothing
+                    is kept besides what the profiler keeps.  The API is
+                    synchronous and runs on the calling thread: a span
+                    belongs to the request whose `snappy.compress` or
+                    `snappy.decompress` span encloses it on that thread, and
+                    that enclosing span is the request's identifier.
   count(name, n)    adds n to a counter of the process's registry: integer
-                    adds on the host, always on.  `counters()` reads a copy,
-                    `reset_counters()` empties it.  Names are
+                    adds on the host under one lock, so exact when several
+                    threads count at once; always on.  `counters()` reads a
+                    copy, `reset_counters()` empties it.  Names are
                     `<module or op>.<what>`, e.g. `concat.launches`,
                     `compress.d2h_bytes`.
   count_launch(k)   one launch of the hand kernel k (`concat`, `tier_b`):
@@ -37,25 +42,29 @@ returns, and no card is timed.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler  # its _is_profiler_enabled: true while a profiler records
 
-_profiling = torch._C._autograd._profiler_enabled  # true while a torch profiler records
 _OFF = contextlib.nullcontext()
 _counts: dict[str, int] = {}
+_counts_lock = threading.Lock()
 
 
 def span(name: str):
     """`with span("snappy.<step>"):` records the block as a
-    `record_function` span while a torch profiler records; else nothing."""
-    return torch.profiler.record_function(name) if _profiling() else _OFF
+    `record_function` span while a torch profiler records, on any thread;
+    else nothing."""
+    return torch.profiler.record_function(name) if _autograd_profiler._is_profiler_enabled else _OFF
 
 
 def count(name: str, n: int = 1) -> None:
     """Add n to the counter `name`."""
-    _counts[name] = _counts.get(name, 0) + n
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + n
 
 
 def count_launch(kernel: str) -> None:
@@ -66,11 +75,13 @@ def count_launch(kernel: str) -> None:
 
 def counters() -> dict[str, int]:
     """A copy of every counter counted since the last reset."""
-    return dict(_counts)
+    with _counts_lock:
+        return dict(_counts)
 
 
 def reset_counters() -> None:
-    _counts.clear()
+    with _counts_lock:
+        _counts.clear()
 
 
 def _sync(tensors) -> None:
